@@ -6,10 +6,14 @@ Phases (any failure raises, so the exit code is non-zero and no result line
 is printed):
 
 1. report the card (nvidia-smi name and power limit) and the toolchain;
-2. build kernels K1 (conv3x3_bn_act) and K2 (heatmap_cc) from csrc/;
-3. K1 at the 11 distinct conv shapes of TrackNet at 288x512, batch 8,
-   against the fp32 plain version, and timed against the plain PyTorch op
-   in bf16 (cuDNN conv + affine + act);
+2. build kernels K1 (conv3x3_bn_act) and K2 (heatmap_cc) from csrc/, one
+   nvcc each, started together;
+3. K1 at the 11 distinct conv shapes of TrackNet at 288x512, batch 8 (relu),
+   and at YOLOv8m's 6 stride-1 3x3 shapes at a 640 input, batch 8 (silu),
+   against the fp32 plain version; each timed beside its plain version, the
+   library call for the same function (cuDNN bf16 conv + affine + act) and
+   its bound (the larger of bytes over 3.35 TB/s and FLOPs over 989
+   TFLOP/s). The TrackNet shapes are summed over its 17 convs;
 4. K2 on batch-8 288x512 fuzzed heatmaps (empty map and exact ties
    included), bit-equal to the plain version, both timed;
 5. the slice: BallTracker at its full configuration (288x512, seq_len 8,
@@ -17,7 +21,9 @@ is printed):
    weights from a seed, on a synthetic 1920x1080 rally clip, through
    predict_and_update + save_predictions (the per-tracker body of
    TrackingRunner.run). Every kernel launch counter is zeroed just before
-   and read just after; both kernels must have run.
+   and read just after; both kernels must have run. A second pass must
+   equal the first; a third, under torch.profiler, gives the device busy
+   share and each kernel's device time.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -56,7 +62,15 @@ TRACKNET_CONVS = [
     (384, 128, 144, 256), (128, 128, 144, 256),
     (192, 64, 288, 512), (64, 64, 288, 512),
 ]
+# YOLOv8m at a 640 input: (Cin, Cout, H, W) of its distinct stride-1 3x3
+# ConvBN shapes (timed, not part of the TrackNet sum).
+YOLO_CONVS = [
+    (48, 48, 160, 160), (96, 96, 80, 80), (192, 192, 40, 40), (288, 288, 20, 20),
+    (192, 64, 80, 80), (576, 192, 20, 20),
+]
 BATCH = 8
+# H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM3 rate.
+PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 # K1 bound: kernel and reference round (nearly) the same fp32 sum to bf16,
 # so |kernel - ref| <= 2 bf16 ulp (2 * 2^-7 relative) + 1e-3 absolute for
 # sums that cancel to ~0.
@@ -84,6 +98,27 @@ def cuda_time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps: int = 20) -> float:
+    """Mean device time per call of `fn`: `reps` calls captured in one CUDA
+    graph after a warm-up, the graph replayed between two events. Replaying
+    takes the host's launch cost out of the time of small kernels."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def phase_report() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -105,7 +140,9 @@ def phase_report() -> str:
 
 
 def phase_build() -> None:
-    for name in ("conv3x3_bn_act", "heatmap_cc"):
+    names = ("conv3x3_bn_act", "heatmap_cc")
+    _build.build(*names)
+    for name in names:
         _build.library(name)
         log = _build.build_log[name]
         print(f"build {name}: {log['seconds']:.2f} s")
@@ -114,48 +151,78 @@ def phase_build() -> None:
                 print(f"  {line.strip()}")
 
 
-def _cudnn_bf16(x, w_oihw, scale, bias):
-    """Timed baseline: the plain PyTorch op natively in bf16 (cuDNN conv on
-    the channels-last view, affine, ReLU)."""
+def _library_bf16(x, w_oihw, scale, bias, act):
+    """One PyTorch call per op for the same function, natively in bf16: cuDNN
+    conv on the channels-last view, affine, activation. Timed, never used by
+    the port."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1)
-    y = torch.relu(y * scale[:, None, None] + bias[:, None, None])
+    y = y * scale[:, None, None] + bias[:, None, None]
+    y = torch.relu(y) if act == "relu" else F.silu(y)
     return y.permute(0, 2, 3, 1)
+
+
+def k1_bound_ms(cin, cout, h, w, batch=BATCH) -> tuple[float, float]:
+    """(operations ms, bytes ms) of one conv on the card: 2 * M * N * K FLOPs
+    over the bf16 tensor-core rate; x, w, scale, bias read once and out
+    written once (bf16, fp32 affine) over the memory rate. The bound is the
+    larger of the two."""
+    m = batch * h * w
+    nbytes = 2 * m * cin + 2 * 9 * cin * cout + 8 * cout + 2 * m * cout
+    flops = 2 * m * cout * 9 * cin
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+
+
+def _k1_shape(dev, g, cin, cout, h, w, act) -> dict:
+    x = torch.randn((BATCH, h, w, cin), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((3, 3, cin, cout), generator=g) / math.sqrt(9 * cin)).to(dev)
+    scale = (torch.rand(cout, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
+    wk = conv3x3.pack_weight(wt)
+    got = conv3x3.conv3x3_bn_act_packed(x, wk, scale, bias, act)
+    ref = conv3x3.conv3x3_bn_act_plain(x.float(), wt.to(torch.bfloat16).float(), scale, bias, act)
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs()
+    ok = bool(torch.all(err <= K1_RTOL * ref.abs() + K1_ATOL))
+    max_err = float(err.max())
+    del ref, err, got
+    check(ok, f"K1 {cin}->{cout} @{h}x{w} {act} beyond its bf16 bound (max err {max_err})")
+    w_oihw = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    kernel_ms = graph_time_ms(lambda: conv3x3.conv3x3_bn_act_packed(x, wk, scale, bias, act))
+    library_ms = graph_time_ms(lambda: _library_bf16(x, w_oihw, scale, bias, act))
+    plain_ms = graph_time_ms(lambda: conv3x3.conv3x3_bn_act_plain(x, wt, scale, bias, act), reps=3)
+    ops_ms, bytes_ms = k1_bound_ms(cin, cout, h, w)
+    bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    tflop = 2 * BATCH * h * w * cout * 9 * cin / 1e9
+    print(f"K1 {cin:>3}->{cout:<3} @{h}x{w} B={BATCH} {act}: kernel {kernel_ms:.3f} ms "
+          f"({tflop / kernel_ms:.1f} TFLOP/s, {100 * bound_ms / kernel_ms:.1f}% of its "
+          f"{bound_ms:.4f} ms {bound_by} bound), cuDNN bf16 {library_ms:.3f} ms "
+          f"({tflop / library_ms:.1f} TFLOP/s), plain fp32 {plain_ms:.3f} ms, "
+          f"max abs err {max_err:.3g}")
+    return {"ms": kernel_ms, "library_ms": library_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "ops_ms": ops_ms, "max_err": max_err}
 
 
 def phase_k1(dev) -> dict:
     g = torch.Generator(device="cpu").manual_seed(1)
-    per_shape = {}
-    for cin, cout, h, w in sorted(set(TRACKNET_CONVS), key=TRACKNET_CONVS.index):
-        x = torch.randn((BATCH, h, w, cin), generator=g).to(dev, torch.bfloat16)
-        wt = (torch.randn((3, 3, cin, cout), generator=g) / math.sqrt(9 * cin)).to(dev)
-        scale = (torch.rand(cout, generator=g) + 0.5).to(dev)
-        bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
-        wk = conv3x3.pack_weight(wt)
-        got = conv3x3.conv3x3_bn_act_packed(x, wk, scale, bias, "relu")
-        ref = conv3x3.conv3x3_bn_act_plain(x.float(), wt.to(torch.bfloat16).float(),
-                                           scale, bias, "relu")
-        torch.cuda.synchronize()
-        err = (got.float() - ref).abs()
-        ok = bool(torch.all(err <= K1_RTOL * ref.abs() + K1_ATOL))
-        max_err = float(err.max())
-        del ref, err
-        check(ok, f"K1 {cin}->{cout} @{h}x{w} beyond its bf16 bound (max err {max_err})")
-        w_oihw = wt.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        kernel_ms = cuda_time_ms(lambda: conv3x3.conv3x3_bn_act_packed(x, wk, scale, bias, "relu"))
-        plain_ms = cuda_time_ms(lambda: _cudnn_bf16(x, w_oihw, scale, bias))
-        gflop = 2 * BATCH * h * w * cout * 9 * cin / 1e9
-        per_shape[(cin, cout, h, w)] = (kernel_ms, plain_ms, max_err)
-        print(f"K1 {cin:>3}->{cout:<3} @{h}x{w} B={BATCH}: kernel {kernel_ms:.3f} ms "
-              f"({gflop / kernel_ms:.1f} TFLOP/s), plain bf16 {plain_ms:.3f} ms "
-              f"({gflop / plain_ms:.1f} TFLOP/s), max abs err {max_err:.3g}")
-        del x, wt, wk, got
-    ms = sum(per_shape[s][0] for s in TRACKNET_CONVS)
-    plain = sum(per_shape[s][1] for s in TRACKNET_CONVS)
-    print(f"K1 over TrackNet's 17 convs at B={BATCH}: kernel {ms:.3f} ms, plain bf16 {plain:.3f} ms")
+    per_shape = {s: _k1_shape(dev, g, *s, "relu")
+                 for s in sorted(set(TRACKNET_CONVS), key=TRACKNET_CONVS.index)}
+    yolo = {s: _k1_shape(dev, g, *s, "silu") for s in YOLO_CONVS}
+    tot = {k: sum(per_shape[s][k] for s in TRACKNET_CONVS)
+           for k in ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms")}
+    # The sum is bound by operations where they take most of the bound.
+    bound_by = "operations" if tot.pop("ops_ms") >= tot["bound_ms"] / 2 else "bytes"
+    print(f"K1 over TrackNet's 17 convs at B={BATCH}: kernel {tot['ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of the {tot['bound_ms']:.3f} ms bound), "
+          f"cuDNN bf16 {tot['library_ms']:.3f} ms, plain fp32 {tot['plain_ms']:.3f} ms")
+    print(f"K1 over YOLOv8m's 6 shapes (once each) at B={BATCH}: kernel "
+          f"{sum(v['ms'] for v in yolo.values()):.3f} ms, cuDNN bf16 "
+          f"{sum(v['library_ms'] for v in yolo.values()):.3f} ms")
     return {"name": "conv3x3_bn_act", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/conv3x3_bn_act.cu",
-            "replaces": "padel_analytics_tpu/ops/pallas_conv.py:211",
-            "max_abs_err": max(v[2] for v in per_shape.values()), "ms": ms, "plain_ms": plain}
+            "replaces": "padel_analytics_tpu/ops/pallas_conv.py:211, "
+                        "padel_analytics_tpu/ops/pallas_conv.py:322",
+            "max_abs_err": max(v["max_err"] for v in [*per_shape.values(), *yolo.values()]),
+            **tot, "bound_by": bound_by}
 
 
 def _heatmaps(rng, n, h, w) -> np.ndarray:
@@ -192,10 +259,14 @@ def phase_k2(dev) -> dict:
     dense_ms = cuda_time_ms(lambda: heatmap.decode_heatmaps(dense), reps=3)
     print(f"K2 B={BATCH} 288x512 blobs: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; "
           f"dense ~50% mask: kernel {dense_ms:.3f} ms; bit-equal")
+    # Bound: the fp32 heatmaps read once and three int32 results written once;
+    # its few integer operations per pixel are far below the byte time.
+    bound_ms = (hms.numel() * 4 + 3 * BATCH * 4) / PEAK_BYTES_S * 1e3
     return {"name": "heatmap_cc", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/heatmap_cc.cu",
             "replaces": "padel_analytics_tpu/ops/pallas_cc.py:108",
-            "max_abs_err": 0, "ms": kernel_ms, "plain_ms": plain_ms}
+            "max_abs_err": 0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 def phase_model(dev) -> None:
@@ -239,13 +310,14 @@ def synthetic_rally(n: int, seed: int) -> list[np.ndarray]:
     return frames
 
 
-def phase_slice(dev) -> dict:
+def phase_slice() -> dict:
     n = 64
     frames = synthetic_rally(n, seed=6)
     with tempfile.TemporaryDirectory() as tmp:
         save = Path(tmp) / "ball.json"
+        # No device argument: the entry point's default is the card.
         tracker = BallTracker(None, config=BallTrackerConfig(), save_path=save,
-                              compute_dtype=torch.bfloat16, device=dev, seed=0)
+                              compute_dtype=torch.bfloat16, seed=0)
         tracker.video_info_post_init(VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n))
 
         conv3x3.reset_launches()
@@ -281,7 +353,36 @@ def phase_slice(dev) -> dict:
     print(f"slice: {n} frames 1920x1080, {chunks} chunks, visible {sum(b.visibility for b in balls)}; "
           f"first pass {n / first_s:.1f} frames/s, second pass {n / second_s:.1f} frames/s; "
           f"peak device memory {peak_gib:.2f} GiB; launches {launches}")
+    profile_pass(tracker, frames)
     return launches
+
+
+def profile_pass(tracker, frames) -> None:
+    """A third pass under torch.profiler: device busy time (kernels and
+    copies, one stream) against the pass's wall time, and each kernel's
+    device time. Measured, not checked: the profiler's own cost slows the
+    host side of this pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tracker.restart()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tracker.predict_and_update(iter(frames), total_frames=len(frames))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("slice profile: device time not measured (the profiler saw no device activity)")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    parts = []
+    for name, key in (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")):
+        ev = [e for e in dev if key in e.name]
+        parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in ev) / 1e3:.3f} ms "
+                     f"in {len(ev)} launches")
+    print(f"slice profile: pass {wall_ms:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); " + "; ".join(parts))
 
 
 def main() -> None:
@@ -293,7 +394,7 @@ def main() -> None:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     phase_model(dev)
-    launches = phase_slice(dev)
+    launches = phase_slice()
     k1["launches"] = launches["conv3x3_bn_act"]
     k2["launches"] = launches["heatmap_cc"]
     print(smi)

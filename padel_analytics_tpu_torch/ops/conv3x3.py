@@ -10,6 +10,8 @@ against. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +19,8 @@ from .. import _build
 from ._fp32 import no_tf32
 
 _ACTS = {"none": 0, "relu": 1, "silu": 2}
+#: Codes at or above this are 100000 + the CUresult of a refused TMA tensor map.
+_ENCODE_ERROR = 100000
 
 #: Kernel launches since the last reset (the wrapper adds one per launch).
 launches = 0
@@ -56,22 +60,51 @@ def conv3x3_bn_act_plain(x, w, scale, bias, act: str = "silu") -> torch.Tensor:
 
 
 def padded_cin(cin: int) -> int:
-    """Input channels as the kernel takes them: a multiple of 8, so that a
-    16-byte copy never straddles two taps."""
+    """Input channels as the kernel takes them: a multiple of 8, so that
+    every TMA stride is a multiple of 16 bytes."""
     return -(-cin // 8) * 8
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """HWIO (3, 3, Cin, Cout) -> the kernel's (9 * Cin_p, Cout) bf16 matrix,
-    row k = (3 * dy + dx) * Cin_p + c, with zero rows for padded channels.
-    Done once per weight (ConvBN caches it), not per call."""
+    """HWIO (3, 3, Cin, Cout) -> the kernel's K-major (Cout, 9, Cin_p) bf16
+    operand, ``wk[n, 3 * dy + dx, c] = w[dy, dx, c, n]``, zero for padded
+    channels. Done once per weight (ConvBN caches it), not per call."""
     kh, kw, cin, cout = w.shape
     if (kh, kw) != (3, 3):
         raise ValueError(f"expected a 3x3 HWIO kernel, got {tuple(w.shape)}")
     cp = padded_cin(cin)
     if cp != cin:
         w = F.pad(w, (0, 0, 0, cp - cin))
-    return w.to(torch.bfloat16).reshape(9 * cp, cout).contiguous()
+    return w.to(torch.bfloat16).reshape(9, cp, cout).permute(2, 0, 1).contiguous()
+
+
+class TilePlan(NamedTuple):
+    """One output tile of the kernel: th x tw pixels of one image by bn
+    output channels."""
+    th: int
+    tw: int
+    bn: int
+
+
+#: Widths of the kernel's 128-pixel tiles (heights 2, 4, 8, 16).
+TILE_WIDTHS = (64, 32, 16, 8)
+
+
+def tile_plan(h: int, w: int, cout: int) -> TilePlan:
+    """The kernel's tile for an (h, w) image and cout channels. Up to 64
+    channels on images a multiple of 128 wide: 2 x 128 pixels (the kernel
+    puts the pixels on the MMA's N side). Otherwise 128 pixels, of the width
+    whose tiles cover the image with the fewest pixels (ties to the wider
+    tile), by 128 output channels where Cout is a multiple of 128, else 64."""
+    if cout <= 64 and w % 128 == 0:
+        return TilePlan(2, 128, 64)
+
+    def covered(tw: int) -> int:
+        th = 128 // tw
+        return -(-h // th) * th * (-(-w // tw) * tw)
+
+    tw = min(TILE_WIDTHS, key=lambda t: (covered(t), -t))
+    return TilePlan(128 // tw, tw, 128 if cout % 128 == 0 else 64)
 
 
 def conv3x3_bn_act(x, w, scale, bias, act: str = "silu") -> torch.Tensor:
@@ -84,7 +117,7 @@ def conv3x3_bn_act(x, w, scale, bias, act: str = "silu") -> torch.Tensor:
 
 
 def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor:
-    """Launch kernel K1 on a CUDA tensor with a `pack_weight` matrix."""
+    """Launch kernel K1 on a CUDA tensor with a `pack_weight` operand."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"kernel K1 takes CUDA tensors, got {x.device}")
@@ -92,18 +125,16 @@ def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor
         raise TypeError(f"kernel K1 takes (B, H, W, C) bf16, got {x.dtype} {tuple(x.shape)}")
     b, h, w_, cin = x.shape
     cp = padded_cin(cin)
-    cout = wk.shape[1]
-    if wk.shape[0] != 9 * cp or wk.dtype != torch.bfloat16 or cout % 8:
+    cout = wk.shape[0]
+    if wk.shape != (cout, 9, cp) or wk.dtype != torch.bfloat16 or cout % 8:
         raise ValueError(
             f"packed weight {tuple(wk.shape)} {wk.dtype} does not fit Cin={cin} "
-            "(Cout must be a multiple of 8)"
+            "(want (Cout, 9, Cin_p) bf16, Cout a multiple of 8)"
         )
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if scale.numel() != cout or bias.numel() != cout:
         raise ValueError(f"scale/bias must hold Cout={cout} values")
-    if b * h * w_ >= 2**31:
-        raise ValueError(f"B*H*W = {b * h * w_} exceeds the kernel's int32 pixel index")
     if cp != cin:
         x = F.pad(x, (0, cp - cin))
     tensors = [x.contiguous(), wk.contiguous(), scale.float().contiguous(),
@@ -111,16 +142,23 @@ def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor
     for t in tensors:
         if t.device != x.device:
             raise ValueError("K1 inputs must share one device")
+        if t.data_ptr() % 16:
+            raise ValueError("K1 inputs must be 16-byte aligned (TMA)")
     x, wk, scale, bias = tensors
     out = torch.empty((b, h, w_, cout), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    plan = tile_plan(h, w_, cout)
     lib = _build.library("conv3x3_bn_act")
     with torch.cuda.device(x.device):  # the launch targets the current device
         code = lib.conv3x3_bn_act_bf16(
             x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, w_, cp, cout, _ACTS[act], torch.cuda.current_stream().cuda_stream,
+            b, h, w_, cp, cout, _ACTS[act], plan.tw, plan.bn,
+            torch.cuda.current_stream().cuda_stream,
         )
+    if code >= _ENCODE_ERROR:
+        raise RuntimeError(f"conv3x3_bn_act_bf16: tensor map refused (CUresult "
+                           f"{code - _ENCODE_ERROR}) for x {tuple(x.shape)}, Cout {cout}")
     _build.check(code, "conv3x3_bn_act_bf16")
     launches += 1
     return out

@@ -25,7 +25,8 @@ def median_background(
     frames: np.ndarray,
     row_chunk: int = 32,
     exact: bool = False,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ) -> np.ndarray:
     """Median image of an (N, H, W, C) uint8 frame stack, computed on
     `device` in row chunks.

@@ -34,7 +34,7 @@ def frame_channels(bg_mode: str) -> int:
 
 
 def median_model_resolution(median: np.ndarray, height: int, width: int,
-                            bg_mode: str, device: torch.device | str = "cpu") -> np.ndarray:
+                            bg_mode: str, device: torch.device | str) -> np.ndarray:
     """Median background at model resolution, uint8 (H, W, 3).
 
     'concat': PIL-parity bicubic resize of the uint8-cast median with

@@ -72,7 +72,7 @@ class BallTracker(Tracker):
         compute_dtype: torch.dtype = torch.bfloat16,
         channel_quirk: bool = True,
         config: Optional[BallTrackerConfig] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         seed: int = 0,
     ):
         super().__init__(load_path=load_path, save_path=save_path)

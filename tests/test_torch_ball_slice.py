@@ -8,6 +8,8 @@ decisive fake TrackNet into both and requires BYTE-IDENTICAL ball JSON
 caches. A second case runs the real TrackNet at fp32 with bridged weights
 and holds the ensembled heatmaps of every chunk within 1e-4 abs."""
 
+import inspect
+
 import cv2
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,9 @@ from padel_analytics_tpu.trackers.ball import BallTracker as JaxBallTracker
 from padel_analytics_tpu.trackers.runner import TrackingRunner as JaxRunner
 from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.models.convert import tracknet_state_dict_from_flax
+from padel_analytics_tpu_torch.ops.median import median_background
 from padel_analytics_tpu_torch.trackers import BallTracker, TrackingRunner
+from padel_analytics_tpu_torch.trackers._ballwindow import median_model_resolution
 from _torch_helpers import random_jax_tracknet
 
 W, H = 128, 96
@@ -66,7 +70,7 @@ def _run_both(tmp_path, clip, height, width, median_max, jax_model, port_model, 
     else:
         jax_tracker.tracknet.model = jax_model
     port_tracker = BallTracker(
-        None, compute_dtype=torch.float32, save_path=tmp_path / "port_ball.json",
+        None, compute_dtype=torch.float32, save_path=tmp_path / "port_ball.json", device="cpu",
         config=BallTrackerConfig(height=height, width=width, batch_size=4,
                                  median_max_sample_num=median_max),
     )
@@ -92,7 +96,7 @@ def test_ball_cache_byte_identical_with_fake_tracknet(rng, tmp_path):
     port_bytes = (tmp_path / "port_ball.json").read_bytes()
     assert port_bytes == jax_bytes
     balls = BallTracker(None, load_path=tmp_path / "port_ball.json",
-                        compute_dtype=torch.float32).results
+                        compute_dtype=torch.float32, device="cpu").results
     assert len(balls) == n
     assert sum(b.visibility for b in balls) > n // 2  # the fake sees the ball
 
@@ -130,22 +134,30 @@ def test_ball_heatmaps_match_with_real_tracknet(rng, tmp_path, monkeypatch):
 def test_runner_refuses_unported_passes(tmp_path, rng):
     clip = tmp_path / "clip.mp4"
     _write_clip(rng, clip, 2)
-    tracker = BallTracker(None, compute_dtype=torch.float32,
+    tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
     for kwargs in ({"render": True}, {"render": False, "collect_data": True},
                    {"render": False, "fused": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrackingRunner([tracker], clip, tmp_path / "o.mp4", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BallTracker(None, inpainting_model_path="inpaint.pt")
+        BallTracker(None, inpainting_model_path="inpaint.pt", device="cpu")
 
 
 def test_short_clip_zero_fills(tmp_path, rng):
     clip = tmp_path / "clip.mp4"
     _write_clip(rng, clip, 5)
-    tracker = BallTracker(None, compute_dtype=torch.float32,
+    tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
     TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False).run()
     assert [b.serialize() for b in tracker.results] == [
         {"frame": i, "xy": (0.0, 0.0), "visibility": 0, "projection": None} for i in range(5)
     ]
+
+
+def test_entry_point_defaults_to_the_card():
+    """BallTracker() targets the card unless the caller asks for the CPU;
+    the device helpers under it take the tracker's device, with no default."""
+    assert inspect.signature(BallTracker).parameters["device"].default == "cuda"
+    for fn in (median_background, median_model_resolution):
+        assert inspect.signature(fn).parameters["device"].default is inspect.Parameter.empty

@@ -40,7 +40,15 @@ def _bf16_close(got, want):
         (2, 36, 64, 27, 64, "relu"),    # TrackNet stem: Cin padded 27 -> 32
         (1, 20, 30, 64, 128, "silu"),   # M not a multiple of the 128-row tile
         (1, 9, 16, 256, 72, "none"),    # Cout not a multiple of the 64 tile
-        (2, 12, 8, 8, 8, "relu"),       # K=72 shorter than one 32-deep slice + pad
+        (2, 12, 8, 8, 8, "relu"),       # 8 channels: one k-block, 56 of its 64 zero-filled
+        (2, 20, 20, 48, 48, "silu"),    # YOLOv8m 20x20 width: 32-wide tiles, Cout 48
+        (1, 40, 40, 576, 192, "silu"),  # W = 40 (16-wide tiles), 9 k-blocks, Cout 192
+        (3, 7, 40, 192, 256, "relu"),   # H = 7 overhangs the tile rows; Cout 256 (bn 128)
+        (1, 5, 20, 27, 48, "none"),     # the padded stem width with a ragged W = 20
+        (2, 11, 20, 96, 64, "none"),    # B*H*W = 440, no multiple of 128
+        (2, 6, 128, 128, 128, "relu"),  # TrackNet-like 64-wide tiles, exact fit
+        (2, 5, 256, 64, 64, "relu"),    # 2 x 128 tiles (pixels on N), H = 5 overhangs
+        (1, 4, 128, 27, 48, "silu"),    # pixels on N with the stem width, Cout 48
     ],
 )
 def test_k1_matches_plain(dev, b, h, w, cin, cout, act):

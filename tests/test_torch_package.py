@@ -9,6 +9,7 @@ from pathlib import Path
 import pytest
 
 import padel_analytics_tpu_torch
+from padel_analytics_tpu_torch import _build
 from padel_analytics_tpu_torch.config import BallTrackerConfig, PipelineConfig
 
 PKG = Path(padel_analytics_tpu_torch.__file__).parent
@@ -56,6 +57,29 @@ def test_kernel_sources_ship_with_the_package():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
         "conv3x3_bn_act.cu", "heatmap_cc.cu",
     ]
+    assert [p.name for p in (PKG / "csrc").glob("*.cuh")] == ["sm90.cuh"]
+
+
+@pytest.mark.parametrize("edit", ["nested_header", "header", "source", "flags"])
+def test_library_name_follows_headers_and_flags(tmp_path, monkeypatch, edit):
+    """The built library's name hashes the source, every local header it
+    includes (recursively) and the flags: editing any of them names a new
+    library, so a stale build is never loaded. Computes names only."""
+    (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "sub/b.cuh"\n')
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "b.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    if edit == "flags":
+        monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lcuda"])
+    else:
+        path = {"nested_header": "sub/b.cuh", "header": "a.cuh", "source": "k.cu"}[edit]
+        (tmp_path / path).write_bytes((tmp_path / path).read_bytes() + b"// edited\n")
+    after = _build.library_path("k")
+    assert after != before and after.parent == before.parent
+    assert after.name.startswith("k-") and after.suffix == ".so"
 
 
 def test_from_flat_reads_reference_names():

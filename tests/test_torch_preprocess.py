@@ -41,7 +41,7 @@ def test_resize_plan_matches_jax(rng, src, dst):
 @pytest.mark.parametrize("exact", [False, True])
 def test_median_background_matches_jax_and_numpy(rng, n, exact):
     frames = rng.integers(0, 256, (n, 17, 23, 3), dtype=np.uint8)
-    got = median.median_background(frames, row_chunk=5, exact=exact)
+    got = median.median_background(frames, row_chunk=5, exact=exact, device="cpu")
     want = jmed.median_background(frames, row_chunk=5, exact=exact)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
@@ -78,7 +78,7 @@ def test_frame_preprocess_and_windows_match_jax(rng, bg_mode):
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)  # exact uint8 values, every pixel
 
-    med_res = bw.median_model_resolution(median_src, *dst, bg_mode)
+    med_res = bw.median_model_resolution(median_src, *dst, bg_mode, "cpu")
     np.testing.assert_array_equal(med_res, jbw.median_model_resolution(median_src, *dst, bg_mode))
     x = bw.assemble_windows(torch.from_numpy(got), torch.from_numpy(med_res), bg_mode,
                             seq_len, batch).numpy()
