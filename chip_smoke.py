@@ -14,8 +14,11 @@ is printed):
    library call for the same function (cuDNN bf16 conv + affine + act) and
    its bound (the larger of bytes over 3.35 TB/s and FLOPs over 989
    TFLOP/s). The TrackNet shapes are summed over its 17 convs;
-4. K2 on batch-8 288x512 fuzzed heatmaps (empty map and exact ties
-   included), bit-equal to the plain version, both timed;
+4. K2 on batch-8 288x512 heatmaps at both cluster sizes (8 and 16): fuzzed
+   blobs (empty map and exact ties included), uniform masks at 10, 50 and
+   100% and bars through every band, each bit-equal to the plain version
+   and timed; cudaOccupancyMaxActiveClusters of each size and the plan's
+   choice printed;
 5. the slice: BallTracker at its full configuration (288x512, seq_len 8,
    bg_mode concat, batch 8, bf16, median over the clip's head) with random
    weights from a seed, on a synthetic 1920x1080 rally clip, through
@@ -31,6 +34,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -242,30 +246,73 @@ def _heatmaps(rng, n, h, w) -> np.ndarray:
     return np.stack(hms).astype(np.float32)
 
 
-def phase_k2(dev) -> dict:
-    hms = torch.from_numpy(_heatmaps(np.random.default_rng(2), BATCH, 288, 512)).to(dev)
-    got = heatmap.decode_heatmaps(hms)
+def _bars(rng, n, h, w) -> np.ndarray:
+    """Vertical bars through every band (far longer than num_iters), one per
+    map at a random column, beside a small blob."""
+    hms = np.zeros((n, h, w), np.float32)
+    for i in range(n):
+        c = rng.integers(2, w - 8)
+        hms[i, 1:h - 1, c:c + 3] = 1.0
+        hms[i, 100:104, (c + 100) % (w - 4):(c + 100) % (w - 4) + 4] = 1.0
+    return hms
+
+
+def _k2_case(name, hms, plans) -> dict:
+    """K2 on `hms` at each cluster size of `plans`: bit-equal to the plain
+    version, then timed as device time (CUDA-graph replay) and per call
+    (a launch loop, the host's cost included)."""
     want = heatmap.decode_heatmaps_plain(hms)
+    ms, loop_ms = {}, {}
+    for c, plan in plans.items():
+        got = heatmap._decode_cuda(hms, 0.5, 32, plan)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), f"K2 {name} at cluster {c} not bit-equal: {a} vs {b}")
+        ms[c] = graph_time_ms(lambda: heatmap._decode_cuda(hms, 0.5, 32, plan))
+        loop_ms[c] = cuda_time_ms(lambda: heatmap._decode_cuda(hms, 0.5, 32, plan), reps=20)
+    mask = float((hms > 0.5).float().mean())
+    print(f"K2 {name} B={hms.shape[0]} {hms.shape[1]}x{hms.shape[2]} (mask {100 * mask:.1f}%): "
+          + ", ".join(f"cluster {c} {ms[c]:.4f} ms ({loop_ms[c]:.4f} a call in a launch loop)"
+                      for c in plans) + "; bit-equal")
+    return ms
+
+
+def phase_k2(dev) -> dict:
+    h, w = 288, 512
+    lib = _build.library("heatmap_cc")
+    plans = {c: heatmap.cc_plan(h, w, c) for c in heatmap.CLUSTER_SIZES}
+    chosen = heatmap.cc_plan(h, w).cluster
+    for c, plan in plans.items():
+        n = ctypes.c_int(-1)
+        _build.check(lib.heatmap_cc_max_active_clusters(c, plan.smem_bytes, ctypes.byref(n)),
+                     "heatmap_cc_max_active_clusters")
+        print(f"K2 cluster {c}: {plan.rows_per_block} rows a block, {plan.threads} threads, "
+              f"{plan.smem_bytes} B dynamic shared memory, {sum(plan.bits[:2]) * 2 + plan.bits[2]} "
+              f"bits a pixel; cudaOccupancyMaxActiveClusters {n.value}")
+    print(f"K2 plan's cluster size at {h}x{w}: {chosen}")
+
+    rng = np.random.default_rng(2)
+    hms = torch.from_numpy(_heatmaps(rng, BATCH, h, w)).to(dev)
+    got = heatmap.decode_heatmaps(hms)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        check(torch.equal(a, b), f"K2 not bit-equal to its plain version: {a} vs {b}")
     check(int(got[2][-2]) == 0, "K2 empty heatmap must be invisible")
-    kernel_ms = cuda_time_ms(lambda: heatmap.decode_heatmaps(hms))
+    blobs = _k2_case("blobs (empty map and tie included)", hms, plans)
     plain_ms = cuda_time_ms(lambda: heatmap.decode_heatmaps_plain(hms), reps=3)
-    dense = torch.rand((BATCH, 288, 512), generator=torch.Generator().manual_seed(3)).to(dev)
-    dense_ok = all(torch.equal(a, b) for a, b in zip(heatmap.decode_heatmaps(dense),
-                                                     heatmap.decode_heatmaps_plain(dense)))
-    check(dense_ok, "K2 not bit-equal on a dense (random) mask")
-    dense_ms = cuda_time_ms(lambda: heatmap.decode_heatmaps(dense), reps=3)
-    print(f"K2 B={BATCH} 288x512 blobs: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms; "
-          f"dense ~50% mask: kernel {dense_ms:.3f} ms; bit-equal")
+    dense = {d: _k2_case(f"uniform mask {d:.0%}",
+                         torch.from_numpy((rng.random((BATCH, h, w)) < d).astype(np.float32)).to(dev),
+                         plans)
+             for d in (0.1, 0.5, 1.0)}
+    _k2_case("band-crossing bars", torch.from_numpy(_bars(rng, BATCH, h, w)).to(dev), plans)
+    print(f"K2 B={BATCH} {h}x{w} at the plan's cluster {chosen}: blobs {blobs[chosen]:.4f} ms, "
+          f"dense 50% {dense[0.5][chosen]:.4f} ms; plain (blobs) {plain_ms:.3f} ms")
     # Bound: the fp32 heatmaps read once and three int32 results written once;
     # its few integer operations per pixel are far below the byte time.
     bound_ms = (hms.numel() * 4 + 3 * BATCH * 4) / PEAK_BYTES_S * 1e3
     return {"name": "heatmap_cc", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/heatmap_cc.cu",
             "replaces": "padel_analytics_tpu/ops/pallas_cc.py:108",
-            "max_abs_err": 0, "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": 0, "ms": blobs[chosen], "dense_ms": dense[0.5][chosen],
+            "cluster": chosen, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 

@@ -44,7 +44,8 @@ SIGNATURES = {
         "conv3x3_bn_act_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "heatmap_cc": {
-        "heatmap_cc_decode": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "heatmap_cc_decode": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "heatmap_cc_max_active_clusters": [_I, _I, _P],
     },
 }
 

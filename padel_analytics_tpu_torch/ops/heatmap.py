@@ -5,17 +5,32 @@ Counterpart of ``padel_analytics_tpu/ops/heatmap.py`` (rollprop method) and
 min/max propagation of each mask pixel's component extrema (min/max row and
 column, raster-first index), then the largest bounding box, ties to the
 largest first index (cv2's reverse-scan order), and its centre. On a CUDA
-tensor it runs ``csrc/heatmap_cc.cu``; on a CPU tensor the plain PyTorch
-version `decode_heatmaps_plain`. The two are bit-equal.
+tensor it runs ``csrc/heatmap_cc.cu``, one thread-block cluster per heatmap
+as `cc_plan` lays it out; on a CPU tensor the plain PyTorch version
+`decode_heatmaps_plain`. The two are bit-equal.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 
 _BIG = 1 << 24
+# The kernel's shape (csrc/heatmap_cc.cu): THREADS threads a block, each
+# keeping the new words of PPT band pixels in registers.
+_THREADS, _PPT = 1024, 18
+#: Most pixels one block's band may hold.
+BAND_LIMIT = _THREADS * _PPT
+#: Cluster sizes the kernel is built for. `cc_plan` takes _CLUSTER, or the
+#: next larger size where a band would not fit at _CLUSTER.
+CLUSTER_SIZES = (8, 16)
+_CLUSTER = 8
+_BYTES_PER_PIXEL = 10  # a 64-bit state word and a uint16 mask-list entry
+_MAX_BATCH = 65535  # the grid's y dimension
 
 #: Kernel launches since the last reset (the wrapper adds one per launch).
 launches = 0
@@ -95,6 +110,42 @@ def decode_heatmaps_plain(heatmaps: torch.Tensor, threshold: float = 0.5,
     return cx.to(torch.int32), cy.to(torch.int32), vis
 
 
+class CCPlan(NamedTuple):
+    """How kernel K2 splits one heatmap: a cluster of `cluster` blocks, each
+    owning a band of `rows_per_block` rows (the last bands may be short or
+    empty) held in `smem_bytes` of shared memory: a 64-bit word a pixel and
+    a uint16 list of the band's mask pixels.
+    `bits` = (row, column, first-index) field widths of that word, packed
+    min-row | min-col | max-row | max-col | first from the low bit."""
+
+    cluster: int
+    rows_per_block: int
+    bits: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def cc_plan(h: int, w: int, cluster: int | None = None) -> CCPlan:
+    """The kernel's plan for (h, w) heatmaps: `cluster` if given, else the
+    preferred size or the next larger one whose band fits. Raises ValueError
+    when no band fits (above BAND_LIMIT pixels a block)."""
+    if h < 1 or w < 1:
+        raise ValueError(f"heatmap of {h}x{w} pixels is empty")
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster} not in {CLUSTER_SIZES}")
+    sizes = (cluster,) if cluster else tuple(c for c in CLUSTER_SIZES if c >= _CLUSTER)
+    for c in sizes:
+        rows = -(-h // c)
+        if rows * w <= BAND_LIMIT:
+            bits = (h.bit_length(), w.bit_length(), (h * w).bit_length())
+            return CCPlan(c, rows, bits, _THREADS, rows * w * _BYTES_PER_PIXEL)
+    raise ValueError(
+        f"heatmap of {h}x{w} pixels: a band of {rows} rows x {w} exceeds kernel K2's "
+        f"{BAND_LIMIT} pixels a block at cluster size {sizes[-1]}"
+    )
+
+
 def decode_heatmaps(heatmaps: torch.Tensor, threshold: float = 0.5, num_iters: int = 32):
     """Decode (B, H, W) heatmaps to (cx, cy, vis) int32 (B,) in heatmap
     pixels; vis = 0 iff cx == cy == 0."""
@@ -103,7 +154,8 @@ def decode_heatmaps(heatmaps: torch.Tensor, threshold: float = 0.5, num_iters: i
     return _decode_cuda(heatmaps, threshold, num_iters)
 
 
-def _decode_cuda(heatmaps: torch.Tensor, threshold: float, num_iters: int):
+def _decode_cuda(heatmaps: torch.Tensor, threshold: float, num_iters: int,
+                 plan: CCPlan | None = None):
     global launches
     if heatmaps.device.type != "cuda" or heatmaps.dim() != 3:
         raise ValueError(
@@ -115,16 +167,19 @@ def _decode_cuda(heatmaps: torch.Tensor, threshold: float, num_iters: int):
         raise ValueError(f"heatmap of {h}x{w} pixels exceeds the kernel's index range")
     if num_iters < 0:
         raise ValueError(f"num_iters must be >= 0, got {num_iters}")
+    if b > _MAX_BATCH:
+        raise ValueError(f"kernel K2 takes at most {_MAX_BATCH} heatmaps a call, got {b}")
+    plan = plan or cc_plan(h, w)
     hm = heatmaps.float().contiguous()
-    out = torch.zeros((b, 3), dtype=torch.int32, device=hm.device)
+    out = torch.empty((b, 3), dtype=torch.int32, device=hm.device)  # every row written
     if b == 0:
         return out[:, 0], out[:, 1], out[:, 2]
-    scratch = torch.empty((b, 11, h, w), dtype=torch.int32, device=hm.device)
     lib = _build.library("heatmap_cc")
     with torch.cuda.device(hm.device):  # the launch targets the current device
         code = lib.heatmap_cc_decode(
-            hm.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h, w,
-            float(threshold), int(num_iters), torch.cuda.current_stream().cuda_stream,
+            hm.data_ptr(), out.data_ptr(), b, h, w, plan.cluster, plan.rows_per_block,
+            plan.smem_bytes, float(threshold), int(num_iters),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "heatmap_cc_decode")
     launches += 1

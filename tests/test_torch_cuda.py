@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _k2_cases import SMALL, dense, small
 from padel_analytics_tpu_torch import _build
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap
 
@@ -108,6 +109,44 @@ def test_k2_bit_equal_to_plain(dev, num_iters):
     for a, b in zip(got, want):
         assert a.dtype == torch.int32
         assert torch.equal(a.cpu(), b)
+
+
+def _k2_bit_equal(x, num_iters, cluster):
+    plan = heatmap.cc_plan(*x.shape[1:], cluster)
+    assert plan.cluster == cluster
+    before = heatmap.launches
+    got = heatmap._decode_cuda(x, 0.5, num_iters, plan)
+    torch.cuda.synchronize()
+    assert heatmap.launches == before + 1
+    want = heatmap.decode_heatmaps_plain(x.cpu(), num_iters=num_iters)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("num_iters", [0, 16, 32])
+@pytest.mark.parametrize("case", SMALL, ids=lambda f: f.__name__)
+def test_k2_band_split_bit_equal(dev, case, num_iters, cluster):
+    """Components across band edges and wider than num_iters, cross-band
+    ties, ragged and short heatmaps (empty bands), B = 1."""
+    _k2_bit_equal(torch.tensor(small(case), device=dev), num_iters, cluster)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("num_iters", [16, 32])
+@pytest.mark.parametrize("density", [0.1, 0.5, 1.0])
+def test_k2_dense_batch_bit_equal(dev, density, num_iters, cluster):
+    """A batch of 8 288x512 uniform random masks."""
+    x = torch.tensor(dense(np.random.default_rng(11), density), device=dev)
+    _k2_bit_equal(x, num_iters, cluster)
+
+
+def test_k2_refuses_heatmaps_beyond_its_band_limit(dev):
+    before = heatmap.launches
+    with pytest.raises(ValueError, match="pixels a block"):
+        heatmap.decode_heatmaps(torch.zeros((1, 577, 512), device=dev))
+    assert heatmap.launches == before
 
 
 def test_build_reuses_library(dev):
