@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's ball-tracking path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players and pose paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,24 +9,41 @@ is printed):
 2. build kernels K1 (conv3x3_bn_act) and K2 (heatmap_cc) from csrc/, one
    nvcc each, started together;
 3. K1 at the 11 distinct conv shapes of TrackNet at 288x512, batch 8 (relu),
-   and at YOLOv8m's 6 stride-1 3x3 shapes at a 640 input, batch 8 (silu),
+   at YOLOv8m's 6 stride-1 3x3 shapes at a 640x640 input, and at the shapes
+   the players and pose paths launch (YOLOv8m detect at the 384x640
+   letterbox of 1080p: 14 distinct in 52 convs; YOLOv8m-pose at 1280x1280:
+   20 in 58; traced from the models on the meta device), batch 8 (silu),
    against the fp32 plain version; each timed beside its plain version, the
    library call for the same function (cuDNN bf16 conv + affine + act) and
    its bound (the larger of bytes over 3.35 TB/s and FLOPs over 989
-   TFLOP/s). The TrackNet shapes are summed over its 17 convs;
+   TFLOP/s). Sums over each model's convs in call order are printed, and
+   the time of the C2f split copies K1's wrapper makes;
 4. K2 on batch-8 288x512 heatmaps at both cluster sizes (8 and 16): fuzzed
    blobs (empty map and exact ties included), uniform masks at 10, 50 and
    100% and bars through every band, each bit-equal to the plain version
    and timed; cudaOccupancyMaxActiveClusters of each size and the plan's
    choice printed;
-5. the slice: BallTracker at its full configuration (288x512, seq_len 8,
+5. the models: TrackNet, YOLOv8m detect and YOLOv8m-pose on the card (bf16,
+   K1) against their fp32 plain path on the CPU, on a small input;
+6. the ball slice: BallTracker at its full configuration (288x512, seq_len 8,
    bg_mode concat, batch 8, bf16, median over the clip's head) with random
    weights from a seed, on a synthetic 1920x1080 rally clip, through
    predict_and_update + save_predictions (the per-tracker body of
    TrackingRunner.run). Every kernel launch counter is zeroed just before
    and read just after; both kernels must have run. A second pass must
    equal the first; a third, under torch.profiler, gives the device busy
-   share and each kernel's device time.
+   share and each kernel's device time;
+7. the players slice: PlayerTracker at its full configuration (YOLOv8m
+   detect, letterbox to 640, conf .5, iou .7, person class, polygon gate,
+   ByteTrack) with random weights from a seed, its cls head calibrated to
+   ~16 candidates a frame, over a synthetic 1920x1080 rally with four
+   player figures, through predict_and_update + save_predictions: 52 K1
+   launches a chunk, a second pass equal to the first, a third under
+   torch.profiler; one chunk's step split into its host and device parts
+   (np.stack, upload, preprocess + model, NMS, predict_sample);
+8. the pose slice: the same with PlayerKeypointsTracker (YOLOv8m-pose, PIL
+   squash to 1280, conf .25): 58 K1 launches a chunk, 13 keypoints a
+   detection.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -34,6 +51,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import json
 import math
@@ -48,11 +66,17 @@ import torch
 import torch.nn.functional as F
 
 from padel_analytics_tpu_torch import _build
-from padel_analytics_tpu_torch.config import BallTrackerConfig
+from padel_analytics_tpu_torch.config import (
+    BallTrackerConfig,
+    PlayerKeypointsTrackerConfig,
+    PlayersTrackerConfig,
+)
+from padel_analytics_tpu_torch.models.layers import ConvBN, lecun_normal_
 from padel_analytics_tpu_torch.models.tracknet import make_tracknet
-from padel_analytics_tpu_torch.models.layers import lecun_normal_
-from padel_analytics_tpu_torch.ops import conv3x3, heatmap
-from padel_analytics_tpu_torch.trackers import BallTracker
+from padel_analytics_tpu_torch.models.yolov8 import C2f, YOLOv8
+from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
+from padel_analytics_tpu_torch.ops.polygon import PolygonZone
+from padel_analytics_tpu_torch.trackers import BallTracker, PlayerKeypointsTracker, PlayerTracker
 from padel_analytics_tpu_torch.utils.video import VideoInfo
 
 # TrackNet at 288x512: (Cin, Cout, H, W) of its 17 stride-1 3x3 ConvBNs, in
@@ -82,6 +106,14 @@ K1_RTOL, K1_ATOL = 2.0 ** -6, 1e-3
 # Whole-model check: the bf16 K1 path against the fp32 plain path, sigmoid
 # heatmaps after 18 convs in bf16.
 MODEL_ATOL = 5e-2
+# YOLOv8m on the card in bf16 against its fp32 plain path, random weights:
+# sigmoid scores and keypoint confidences (abs), box and keypoint
+# coordinates in input pixels (abs) after ~90 bf16 layers.
+# Measured on the H100: <= 2e-4 and <= 0.0074 px, against a spread of the
+# fp32 scores of ~0.016 (He-normal weights keep the signal weak but alive).
+YOLO_SCORE_ATOL, YOLO_PIXEL_ATOL = 4e-3, 0.5
+# Input sizes of the two YOLOv8m paths on 1080p frames (H, W).
+DETECT_HW, POSE_HW = (384, 640), (1280, 1280)
 
 
 def check(cond: bool, what: str) -> None:
@@ -206,27 +238,87 @@ def _k1_shape(dev, g, cin, cout, h, w, act) -> dict:
             "bound_ms": bound_ms, "ops_ms": ops_ms, "max_err": max_err}
 
 
+def _trace(model, h: int, w: int, select, record) -> list:
+    """record(module, input) of every module that `select` picks, in call
+    order, over one forward of `model` on a (1, h, w, 3) input: a copy of
+    the model runs on the meta device (shapes only, nothing computed)."""
+    model = copy.deepcopy(model).to("meta").eval()
+    out = []
+    for m in model.modules():
+        if select(m):
+            m.register_forward_pre_hook(lambda mod, args: out.append(record(mod, args[0])))
+    with torch.no_grad():
+        model(torch.empty((1, h, w, 3), device="meta"))
+    return out
+
+
+def k1_call_shapes(model, h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """(Cin, Cout, H, W) of every K1 launch of one forward, in call order."""
+    return _trace(model, h, w, lambda m: isinstance(m, ConvBN) and m.fused,
+                  lambda m, x: (x.shape[-1], m.conv.out_channels, *x.shape[1:3]))
+
+
+def c2f_split_shapes(model, h: int, w: int) -> list[tuple[int, int, int]]:
+    """(H, W, 2c) of the tensor each C2f splits into two c-channel halves;
+    the second half reaches K1 as a non-contiguous view, which the wrapper
+    copies."""
+    return _trace(model, h, w, lambda m: isinstance(m, C2f),
+                  lambda m, x: (*x.shape[1:3], 2 * m.c))
+
+
+_SUM_KEYS = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms")
+
+
+def _k1_sum(name: str, convs, timed: dict) -> dict:
+    """K1 and its yardsticks summed over a model's convs in call order."""
+    tot = {k: sum(timed[s][k] for s in convs) for k in _SUM_KEYS}
+    # The sum is bound by operations where they take most of the bound.
+    tot["bound_by"] = "operations" if tot.pop("ops_ms") >= tot["bound_ms"] / 2 else "bytes"
+    print(f"K1 over {name}'s {len(convs)} convs at B={BATCH}: kernel {tot['ms']:.3f} ms "
+          f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of the {tot['bound_ms']:.3f} ms "
+          f"{tot['bound_by']} bound), cuDNN bf16 {tot['library_ms']:.3f} ms, plain fp32 "
+          f"{tot['plain_ms']:.3f} ms")
+    return tot
+
+
+def _split_copies(dev, name: str, splits) -> None:
+    """Device time of the copies K1's wrapper makes of the C2f halves in one
+    batch-8 forward (CUDA-graph replay), beside their byte bound."""
+    ms = nbytes = 0.0
+    for h, w, c2 in splits:
+        y = torch.randn((BATCH, h, w, c2), device=dev, dtype=torch.bfloat16)
+        ms += graph_time_ms(lambda: y[..., c2 // 2:].contiguous())
+        nbytes += 2 * y.numel()  # half read, half written, 2 bytes each
+    print(f"C2f split copies of YOLOv8m {name} ({len(splits)} a forward) at B={BATCH}: "
+          f"{ms:.3f} ms, bound {nbytes / PEAK_BYTES_S * 1e3:.3f} ms (bytes)")
+
+
 def phase_k1(dev) -> dict:
     g = torch.Generator(device="cpu").manual_seed(1)
-    per_shape = {s: _k1_shape(dev, g, *s, "relu")
-                 for s in sorted(set(TRACKNET_CONVS), key=TRACKNET_CONVS.index)}
-    yolo = {s: _k1_shape(dev, g, *s, "silu") for s in YOLO_CONVS}
-    tot = {k: sum(per_shape[s][k] for s in TRACKNET_CONVS)
-           for k in ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms")}
-    # The sum is bound by operations where they take most of the bound.
-    bound_by = "operations" if tot.pop("ops_ms") >= tot["bound_ms"] / 2 else "bytes"
-    print(f"K1 over TrackNet's 17 convs at B={BATCH}: kernel {tot['ms']:.3f} ms "
-          f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of the {tot['bound_ms']:.3f} ms bound), "
-          f"cuDNN bf16 {tot['library_ms']:.3f} ms, plain fp32 {tot['plain_ms']:.3f} ms")
-    print(f"K1 over YOLOv8m's 6 shapes (once each) at B={BATCH}: kernel "
-          f"{sum(v['ms'] for v in yolo.values()):.3f} ms, cuDNN bf16 "
-          f"{sum(v['library_ms'] for v in yolo.values()):.3f} ms")
+    models = {"detect": (YOLOv8("m", 1), DETECT_HW), "pose": (YOLOv8("m", 1, 13), POSE_HW)}
+    detect, pose = (k1_call_shapes(m, *hw) for m, hw in models.values())
+    check(len(detect) == 52 and len(pose) == 58, f"K1 call sites {len(detect)}, {len(pose)}")
+    tracknet = {s: _k1_shape(dev, g, *s, "relu")
+                for s in sorted(set(TRACKNET_CONVS), key=TRACKNET_CONVS.index)}
+    yolo = {}  # silu shapes, each timed once
+    for s in [*YOLO_CONVS, *detect, *pose]:
+        if s not in yolo:
+            yolo[s] = _k1_shape(dev, g, *s, "silu")
+    tot = _k1_sum("TrackNet", TRACKNET_CONVS, tracknet)
+    print(f"K1 over YOLOv8m's 6 shapes at 640x640 (once each) at B={BATCH}: kernel "
+          f"{sum(yolo[s]['ms'] for s in YOLO_CONVS):.3f} ms, cuDNN bf16 "
+          f"{sum(yolo[s]['library_ms'] for s in YOLO_CONVS):.3f} ms")
+    sums = {"tracknet_288x512": dict(tot),
+            "yolov8m_detect_384x640": _k1_sum("YOLOv8m detect @384x640", detect, yolo),
+            "yolov8m_pose_1280x1280": _k1_sum("YOLOv8m-pose @1280x1280", pose, yolo)}
+    for name, (model, hw) in models.items():
+        _split_copies(dev, name, c2f_split_shapes(model, *hw))
     return {"name": "conv3x3_bn_act", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/conv3x3_bn_act.cu",
             "replaces": "padel_analytics_tpu/ops/pallas_conv.py:211, "
                         "padel_analytics_tpu/ops/pallas_conv.py:322",
-            "max_abs_err": max(v["max_err"] for v in [*per_shape.values(), *yolo.values()]),
-            **tot, "bound_by": bound_by}
+            "max_abs_err": max(v["max_err"] for v in [*tracknet.values(), *yolo.values()]),
+            **tot, "sums": sums}
 
 
 def _heatmaps(rng, n, h, w) -> np.ndarray:
@@ -317,7 +409,8 @@ def phase_k2(dev) -> dict:
 
 
 def phase_model(dev) -> None:
-    """TrackNet on the card (bf16, K1) against its fp32 plain path."""
+    """TrackNet, YOLOv8m detect and YOLOv8m-pose on the card (bf16, K1)
+    against their fp32 plain path on the CPU."""
     model, in_dim = make_tracknet(8, "concat")
     lecun_normal_(model, torch.Generator().manual_seed(4))
     model.eval()
@@ -333,6 +426,43 @@ def phase_model(dev) -> None:
     check(err <= MODEL_ATOL, f"TrackNet bf16 on the card vs fp32 plain: max err {err}")
     print(f"TrackNet 2x64x128 bf16 (K1) vs fp32 plain: max abs err {err:.4f} "
           f"(bound {MODEL_ATOL})")
+    for nk in (0, 13):
+        _yolo_model_check(dev, nk)
+
+
+def _yolo_model_check(dev, nk: int) -> None:
+    name = "YOLOv8m-pose" if nk else "YOLOv8m detect"
+    model = YOLOv8("m", 1, nk)
+    lecun_normal_(model, torch.Generator().manual_seed(7 + nk))
+    with torch.no_grad():  # He-normal: under LeCun the signal dies out with depth
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(math.sqrt(2.0))
+    model.eval()
+    x = torch.rand((2, 128, 160, 3), generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        ref = model(x)
+    model.to(dev)
+    conv3x3.reset_launches()
+    with torch.inference_mode():
+        got = {k: v.cpu() for k, v in model(x.to(dev, torch.bfloat16)).items()}
+    check(conv3x3.launches == (58 if nk else 52), f"{name}: {conv3x3.launches} K1 launches")
+    errs = {}
+    for k, want in ref.items():
+        check(got[k].shape == want.shape and bool(torch.isfinite(got[k]).all()),
+              f"{name} {k}: shape or finiteness")
+        d = (got[k] - want).abs()
+        if k == "kpts":
+            errs["kpts_xy"], errs["kpts_conf"] = float(d[..., :2].max()), float(d[..., 2].max())
+        else:
+            errs[k] = float(d.max())
+    bounds = {"boxes": YOLO_PIXEL_ATOL, "scores": YOLO_SCORE_ATOL,
+              "kpts_xy": YOLO_PIXEL_ATOL, "kpts_conf": YOLO_SCORE_ATOL}
+    for k, e in errs.items():
+        check(e <= bounds[k], f"{name} bf16 on the card vs fp32 plain: {k} max err {e}")
+    print(f"{name} 2x128x160 bf16 (K1) vs fp32 plain: max abs err "
+          + ", ".join(f"{k} {e:.4f} (bound {bounds[k]})" for k, e in errs.items())
+          + f"; score range {float(ref['scores'].min()):.3f}-{float(ref['scores'].max()):.3f}")
 
 
 def synthetic_rally(n: int, seed: int) -> list[np.ndarray]:
@@ -404,7 +534,8 @@ def phase_slice() -> dict:
     return launches
 
 
-def profile_pass(tracker, frames) -> None:
+def profile_pass(tracker, frames, kernels=(("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")),
+                 label="slice", top_n: int = 0) -> None:
     """A third pass under torch.profiler: device busy time (kernels and
     copies, one stream) against the pass's wall time, and each kernel's
     device time. Measured, not checked: the profiler's own cost slows the
@@ -420,16 +551,212 @@ def profile_pass(tracker, frames) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("slice profile: device time not measured (the profiler saw no device activity)")
+        print(f"{label} profile: device time not measured (the profiler saw no device activity)")
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     parts = []
-    for name, key in (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")):
+    for name, key in kernels:
         ev = [e for e in dev if key in e.name]
         parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in ev) / 1e3:.3f} ms "
                      f"in {len(ev)} launches")
-    print(f"slice profile: pass {wall_ms:.1f} ms under the profiler, device busy "
+    print(f"{label} profile: pass {wall_ms:.1f} ms under the profiler, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); " + "; ".join(parts))
+    by_name: dict[str, list[float]] = {}
+    for e in dev:
+        by_name.setdefault(e.name[:70], []).append(e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top_n]
+    for name, t in top:
+        print(f"  {label} device: {sum(t):8.3f} ms in {len(t):4d}  {name}")
+
+
+# The players' polygon gate: the synthetic rally's court from its far line
+# (y = 150) down past the bottom of the frame, as a camera behind the near
+# baseline sees it.
+COURT_POLYGON = np.array([[200, 1100], [1720, 1100], [1620, 150], [300, 150]], float)
+
+
+def synthetic_players(n: int, seed: int) -> list[np.ndarray]:
+    """synthetic_rally with four player-sized figures (70x180 body, head
+    above) walking across the court."""
+    frames = synthetic_rally(n, seed)
+    figures = [((400, 300), 6, (200, 60, 60)), ((1300, 330), -6, (60, 200, 60)),
+               ((500, 650), 5, (230, 230, 230)), ((1250, 680), -5, (30, 30, 30))]
+    for i, f in enumerate(frames):
+        for (x0, y0), vx, colour in figures:
+            x, y = x0 + vx * i, y0 + (i % 16)
+            f[y: y + 180, x: x + 70] = colour
+            f[y - 34: y, x + 18: x + 52] = (220, 180, 150)
+    return frames
+
+
+def _logit(p: float) -> float:
+    p = min(max(p, 1e-7), 1.0 - 1e-7)
+    return math.log(p / (1.0 - p))
+
+
+def calibrate_cls_head(tracker, frames, target: int = 16) -> dict:
+    """Make a random-weight cls head gate like a trained one. Untrained
+    class logits sit near 0 (sigmoid ~0.5, on the players' conf .5), so
+    every anchor passes the threshold or none does. Two shape-preserving
+    changes to the cls projections, from probes of the gating scores on
+    `frames` through the tracker's own preprocessing: scale the kernel until
+    the logits of the 1st and the (3 target)-th largest score lie >= 0.5
+    apart, then shift the bias by logit(conf) - logit(target-th largest
+    score), for about `target` candidates a frame."""
+    x = torch.from_numpy(np.stack(frames)).to(tracker.device)
+    projs = [getattr(tracker.engine.model, f"cls_{i}").proj for i in range(3)]
+    base = [(p.weight.detach().clone(), p.bias.detach().clone()) for p in projs]
+
+    def set_head(scale: float, shift: float) -> None:
+        with torch.no_grad():
+            for p, (w, b) in zip(projs, base):
+                p.weight.copy_(w * scale)
+                p.bias.copy_(b + shift)
+
+    def gate() -> torch.Tensor:
+        with torch.inference_mode():
+            return tracker.model_outputs(x)[1].float()
+
+    scale, shift, mean, max_c = 1.0, 0.0, None, None
+    for _ in range(6):
+        set_head(scale, 0.0)
+        top = gate().sort(dim=-1, descending=True).values
+        q = {r: float(top[:, r - 1].mean()) for r in (1, target, 3 * target)}
+        if not 1e-6 < q[target] < 1.0 - 1e-6:
+            scale /= 8.0  # sigmoid saturated
+            continue
+        spread = _logit(q[1]) - _logit(q[3 * target])
+        if spread < 0.5:
+            scale *= min(max(4.0 / max(spread, 1e-4), 2.0), 256.0)
+            continue
+        shift = _logit(tracker.CONF) - _logit(q[target])
+        set_head(scale, shift)
+        n = nms.candidate_count(gate(), tracker.CONF)
+        mean, max_c = float(n.float().mean()), int(n.max())
+        if target / 2 <= mean <= 2 * target:
+            break
+        scale *= 4.0  # too steep between the ranks
+    check(mean is not None and 0 < mean <= tracker.nms_top_k,
+          f"{tracker}: calibration gave {mean} candidates a frame")
+    return {"kernel_scale": scale, "bias_shift": round(shift, 4),
+            "mean_candidates": mean, "max_candidates": max_c}
+
+
+def host_split(tracker, frames, reps: int = 5) -> None:
+    """Wall ms of the parts of one chunk's step, each run alone and ended by
+    a synchronize (medians of `reps`): the host np.stack, the upload, the
+    device forward (preprocess + model), batched_nms, and the whole
+    predict_sample (ByteTrack or the keypoint objects included)."""
+    def wall(fn) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    sample = np.stack(frames)
+    x = torch.from_numpy(sample).to(tracker.device)
+    with torch.inference_mode():
+        out, gate = tracker.model_outputs(x)
+        parts = {
+            "np.stack": wall(lambda: np.stack(frames)),
+            "upload": wall(lambda: torch.from_numpy(sample).to(tracker.device)),
+            "preprocess + model": wall(lambda: tracker.model_outputs(x)),
+            "batched_nms": wall(lambda: nms.batched_nms(
+                out["boxes"], gate, conf_thres=tracker.CONF, iou_thres=tracker.IOU,
+                max_det=tracker.max_detections, top_k=tracker.nms_top_k)),
+        }
+    tracker.restart()
+    parts["predict_sample"] = wall(lambda: tracker.predict_sample(sample))
+    print(f"{tracker} one chunk of {len(frames)}, wall ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+
+
+def run_tracker_slice(tracker, frames, save: Path, convs_per_chunk: int, check_results) -> dict:
+    """One tracker over `frames` as TrackingRunner.run drives it, with its
+    cls head calibrated first; K1's launches counted over the first pass; a
+    second pass must equal the first; a third runs under the profiler."""
+    n = len(frames)
+    tracker.video_info_post_init(VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n))
+    calib = calibrate_cls_head(tracker, frames[: tracker.batch_size])
+
+    conv3x3.reset_launches()
+    heatmap.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tracker.predict_and_update(iter(frames), total_frames=n)
+    tracker.save_predictions()
+    first_s = time.perf_counter() - t0
+    launches = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(save.exists() and len(json.loads(save.read_text())) == n, f"{tracker}: saved JSON cache")
+
+    results = list(tracker.results)
+    chunks = -(-n // tracker.batch_size)
+    check(len(results) == n, f"{tracker}: {len(results)} results for {n} frames")
+    check(launches["conv3x3_bn_act"] == convs_per_chunk * chunks,
+          f"{tracker}: K1 launches {launches['conv3x3_bn_act']} != {convs_per_chunk} x {chunks} chunks")
+    found = check_results(results)
+    saturation = tracker.nms_saturation.summary()
+
+    first = [r.serialize() for r in results]
+    tracker.restart()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracker.predict_and_update(iter(frames), total_frames=n)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    check([r.serialize() for r in tracker.results] == first, f"{tracker}: second pass differs")
+    print(f"{tracker}: {n} frames 1920x1080, {chunks} chunks, {found}; first pass "
+          f"{n / first_s:.1f} frames/s, second pass {n / second_s:.1f} frames/s; peak device "
+          f"memory {peak_gib:.2f} GiB; launches {launches}; calibration {calib}; NMS "
+          f"saturation {saturation}")
+    host_split(tracker, frames[: tracker.batch_size])
+    profile_pass(tracker, frames, (("K1", "conv3x3_bn_act"),), label=str(tracker), top_n=8)
+    return launches
+
+
+def _check_players(results) -> str:
+    players = [pl for p in results for pl in p]
+    check(all(type(p).__name__ == "Players" for p in results), "one Players per frame")
+    check(len(players) > 0, "no player tracked")
+    for pl in players:
+        x1, y1, x2, y2 = pl.xyxy
+        check(0 <= x1 <= x2 <= 1920 and 0 <= y1 <= y2 <= 1080, f"box {pl.xyxy} outside the frame")
+        check(isinstance(pl.id, int) and pl.id >= 1, f"player id {pl.id!r}")
+        check(pl.confidence > 0.5, f"confidence {pl.confidence} at or below conf")
+    return f"{len(players)} player boxes, {len({pl.id for pl in players})} ids"
+
+
+def _check_pose(results) -> str:
+    people = [pk for p in results for pk in p]
+    check(all(type(p).__name__ == "PlayersKeypoints" for p in results),
+          "one PlayersKeypoints per frame")
+    check(len(people) > 0, "no pose detected")
+    for pk in people:
+        check(len(pk) == 13, f"{len(pk)} keypoints")
+        check(all(math.isfinite(v) for k in pk for v in k.xy), "keypoint not finite")
+    return f"{len(people)} poses"
+
+
+def phase_players(frames) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        save = Path(tmp) / "players.json"
+        # No device argument: the entry point's default is the card.
+        tracker = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                                config=PlayersTrackerConfig(), save_path=save)
+        return run_tracker_slice(tracker, frames, save, 52, _check_players)
+
+
+def phase_pose(frames) -> dict:
+    with tempfile.TemporaryDirectory() as tmp:
+        save = Path(tmp) / "pose.json"
+        tracker = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig(),
+                                         save_path=save)
+        return run_tracker_slice(tracker, frames, save, 58, _check_pose)
 
 
 def main() -> None:
@@ -441,9 +768,13 @@ def main() -> None:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     phase_model(dev)
-    launches = phase_slice()
-    k1["launches"] = launches["conv3x3_bn_act"]
-    k2["launches"] = launches["heatmap_cc"]
+    by_path = {"ball": phase_slice()}
+    frames = synthetic_players(64, seed=9)
+    by_path["players"] = phase_players(frames)
+    by_path["pose"] = phase_pose(frames)
+    k1["launches"] = sum(v["conv3x3_bn_act"] for v in by_path.values())
+    k1["launches_by_path"] = {p: v["conv3x3_bn_act"] for p, v in by_path.items()}
+    k2["launches"] = by_path["ball"]["heatmap_cc"]
     print(smi)
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,10 @@
-"""Typed configuration for the ported ball-tracking path.
+"""Typed configuration for the ported trackers.
 
-Counterpart of ``padel_analytics_tpu/config.py``: the `BallTrackerConfig`
-and the `PipelineConfig` fields the ported path reads. `from_flat` /
-`from_module` accept the reference's flat config names. The JAX package's
-``use_pallas`` switch has no counterpart: on CUDA the hand-written kernels
-are the path.
+Counterpart of ``padel_analytics_tpu/config.py``: the ball, players and
+player-pose tracker configs and the `PipelineConfig` fields the ported
+paths read. `from_flat` / `from_module` accept the reference's flat config
+names. The JAX package's ``use_pallas`` switch has no counterpart: on CUDA
+the hand-written kernels are the path.
 """
 
 from __future__ import annotations
@@ -12,6 +12,53 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional
+
+
+@dataclass
+class PlayersTrackerConfig:
+    """YOLOv8 person detection (reference: conf .5, iou .7, imgsz 640,
+    person class only)."""
+
+    model_path: Optional[str] = None
+    model_variant: str = "m"  # the reference's players weight is yolov8m
+    batch_size: int = 8
+    conf: float = 0.5
+    iou: float = 0.7
+    imgsz: int = 640
+    max_detections: int = 32  # fixed-size padded detection tensor
+    # None = infer from the checkpoint's cls head (stock COCO yolov8m.pt
+    # has 80; the person class is selected before NMS regardless).
+    num_classes: Optional[int] = None
+    # Pre-NMS candidate cap (ultralytics keeps up to 30000; padel scenes
+    # hold <= 4 players, so 128 is lossless here; raise it for dense scenes).
+    nms_top_k: int = 128
+    annotator: str = "rectangle_bounding_box"
+    show_confidence: bool = True
+    load_path: Optional[str] = None
+    save_path: Optional[str] = None
+
+
+@dataclass
+class PlayerKeypointsTrackerConfig:
+    """YOLOv8-pose 13-keypoint player pose (reference: conf .25, iou .7,
+    train_image_size 640 or 1280)."""
+
+    model_path: Optional[str] = None
+    model_variant: str = "m"
+    train_image_size: int = 1280
+    batch_size: int = 8
+    conf: float = 0.25
+    iou: float = 0.7
+    max_detections: int = 8
+    num_keypoints: int = 13
+    # Pre-NMS candidate cap (see PlayersTrackerConfig.nms_top_k).
+    nms_top_k: int = 64
+    load_path: Optional[str] = None
+    save_path: Optional[str] = None
+
+    def __post_init__(self):
+        if self.train_image_size not in (640, 1280):
+            raise ValueError("train_image_size must be 640 or 1280")
 
 
 @dataclass
@@ -42,6 +89,10 @@ class PipelineConfig:
     collect_data_path: str = "data.csv"
     max_frames: Optional[int] = None
     render_video: bool = True
+    players: PlayersTrackerConfig = field(default_factory=PlayersTrackerConfig)
+    player_keypoints: PlayerKeypointsTrackerConfig = field(
+        default_factory=PlayerKeypointsTrackerConfig
+    )
     ball: BallTrackerConfig = field(default_factory=BallTrackerConfig)
 
     @classmethod
@@ -56,6 +107,20 @@ class PipelineConfig:
             collect_data_path=get("COLLECT_DATA_PATH", "data.csv"),
             max_frames=get("MAX_FRAMES"),
             render_video=get("RENDER_VIDEO", True),
+        )
+        cfg.players = PlayersTrackerConfig(
+            model_path=get("PLAYERS_TRACKER_MODEL"),
+            batch_size=get("PLAYERS_TRACKER_BATCH_SIZE", 8),
+            annotator=get("PLAYERS_TRACKER_ANNOTATOR", "rectangle_bounding_box"),
+            load_path=get("PLAYERS_TRACKER_LOAD_PATH"),
+            save_path=get("PLAYERS_TRACKER_SAVE_PATH"),
+        )
+        cfg.player_keypoints = PlayerKeypointsTrackerConfig(
+            model_path=get("PLAYERS_KEYPOINTS_TRACKER_MODEL"),
+            train_image_size=get("PLAYERS_KEYPOINTS_TRACKER_TRAIN_IMAGE_SIZE", 1280),
+            batch_size=get("PLAYERS_KEYPOINTS_TRACKER_BATCH_SIZE", 8),
+            load_path=get("PLAYERS_KEYPOINTS_TRACKER_LOAD_PATH"),
+            save_path=get("PLAYERS_KEYPOINTS_TRACKER_SAVE_PATH"),
         )
         cfg.ball = BallTrackerConfig(
             tracking_model_path=get("BALL_TRACKER_MODEL"),

@@ -1,9 +1,10 @@
 """Weights carried into the port's torch modules.
 
 Counterpart of ``padel_analytics_tpu/models/convert.py``, in the other
-direction: `tracknet_state_dict_from_flax` maps the JAX package's
-``{'params', 'batch_stats'}`` variable tree (as numpy arrays) onto a torch
-``state_dict``, the inverse of the JAX package's conversion rules:
+direction where the source is the JAX package: `state_dict_from_flax` maps
+a ``{'params', 'batch_stats'}`` variable tree (as numpy arrays) onto a torch
+``state_dict``. The port's submodule names equal the Flax tree's (TrackNet
+and YOLOv8 alike), so the bridge only inverts the layouts:
 
 - kernel (Kh, Kw, I, O)  -> weight (O, I, Kh, Kw)
 - bn scale / bias        -> bn weight / bias
@@ -11,11 +12,15 @@ direction: `tracknet_state_dict_from_flax` maps the JAX package's
 
 The reference's own TrackNet checkpoints (``{'model': state_dict,
 'param_dict': {...}}``) already use the port's names and layouts and load
-as they are.
+as they are. ultralytics YOLOv8 checkpoints (``model.{i}.`` layer indices,
+``m.{k}`` bottlenecks, ``cv2/cv3/cv4.{scale}.{0,1,2}`` head branches) are
+renamed by `yolov8_state_dict_from_ultralytics`, with no transposes.
 """
 
 from __future__ import annotations
 
+import sys
+import types
 from typing import Any, Mapping
 
 import numpy as np
@@ -30,8 +35,9 @@ def _walk(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
             yield prefix + (key,), np.asarray(value)
 
 
-def tracknet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX TrackNet variables -> a state_dict for the port's TrackNet."""
+def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX variables (TrackNet, YOLOv8) -> a state_dict for the port's
+    module of the same architecture."""
     out: dict[str, torch.Tensor] = {}
     for path, value in _walk(variables["params"]):
         module, leaf = ".".join(path[:-1]), path[-1]
@@ -55,13 +61,110 @@ def tracknet_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, tor
     return out
 
 
+#: The ball path's name for the bridge.
+tracknet_state_dict_from_flax = state_dict_from_flax
+
+
 def convert_tracknet_checkpoint(ckpt: Mapping[str, Any]) -> tuple[dict, dict]:
     """Split a reference TrackNet checkpoint into (state_dict, param_dict)."""
     state_dict = ckpt["model"] if "model" in ckpt else ckpt
     return dict(state_dict), dict(ckpt.get("param_dict", {}))
 
 
-def load_torch_checkpoint(path: str):
-    """torch.load a reference .pt checkpoint without unpickling code
-    (``weights_only=True``; TrackNet's dict checkpoints need nothing more)."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+# ------------------------------------------------------------------- YOLOv8
+
+# ultralytics DetectionModel/PoseModel layer indices -> the port's names
+# (the layers between carry no parameters: Upsample, Concat).
+_YOLO_LAYERS = {
+    "0": "stem", "1": "down1", "2": "c2f_1", "3": "down2", "4": "c2f_2",
+    "5": "down3", "6": "c2f_3", "7": "down4", "8": "c2f_4", "9": "sppf",
+    "12": "neck_c2f_1", "15": "neck_c2f_2", "16": "neck_down1",
+    "18": "neck_c2f_3", "19": "neck_down2", "21": "neck_c2f_4",
+}
+_HEAD_BRANCH = {"cv2": "box", "cv3": "cls", "cv4": "kpt"}
+_HEAD_LAYER = {"0": "c0", "1": "c1", "2": "proj"}
+
+
+def _yolo_key(key: str, head_index: str) -> str:
+    parts = key.split(".")
+    if parts[0] != "model" or len(parts) < 3:
+        raise ValueError(f"not an ultralytics YOLOv8 key: {key!r}")
+    idx, rest = parts[1], parts[2:]
+    if idx == head_index:
+        branch, scale, layer, *leaf = rest
+        return ".".join([f"{_HEAD_BRANCH[branch]}_{scale}", _HEAD_LAYER[layer], *leaf])
+    if idx not in _YOLO_LAYERS:
+        raise ValueError(f"unhandled ultralytics layer in {key!r}")
+    # C2f bottlenecks are 'm.{i}' there and 'm_{i}' here.
+    for i, p in enumerate(rest[:-1]):
+        if p == "m" and rest[i + 1].isdigit():
+            rest = rest[:i] + [f"m_{rest[i + 1]}"] + rest[i + 2:]
+            break
+    return ".".join([_YOLO_LAYERS[idx], *rest])
+
+
+def yolov8_state_dict_from_ultralytics(state_dict: Mapping[str, Any],
+                                       head_index: int = 22) -> dict[str, torch.Tensor]:
+    """ultralytics YOLOv8 detect/pose state_dict -> the port's YOLOv8
+    state_dict (fp32). The DFL conv (a frozen arange) is dropped: the decode
+    takes the expectation in closed form."""
+    out = {}
+    for key, value in state_dict.items():
+        if ".dfl." in key:
+            continue
+        if key.startswith("model.model."):
+            key = key[len("model."):]
+        value = torch.as_tensor(value)
+        out[_yolo_key(key, str(head_index))] = (
+            value.float() if value.is_floating_point() else value)
+    return out
+
+
+def load_torch_checkpoint(path: str, allow_pickle: bool = False):
+    """torch.load a .pt checkpoint, safest path first.
+
+    Tries ``weights_only=True`` (no code runs) first; TrackNet's dict
+    checkpoints need nothing more. ultralytics .pt files pickle whole
+    nn.Module objects, so they need a full unpickle, which runs code from
+    the file: only with ``allow_pickle=True``, and with stub ultralytics
+    modules, so that the ultralytics package need not be installed."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        if not allow_pickle:
+            raise
+    return _load_torch_checkpoint_unpickle(path)
+
+
+_ULTRALYTICS_MODULES = (
+    "ultralytics",
+    "ultralytics.nn",
+    "ultralytics.nn.tasks",
+    "ultralytics.nn.modules",
+    "ultralytics.nn.modules.block",
+    "ultralytics.nn.modules.conv",
+    "ultralytics.nn.modules.head",
+    "ultralytics.utils",
+    "ultralytics.utils.loss",
+    "ultralytics.utils.tal",
+)
+
+
+def _load_torch_checkpoint_unpickle(path: str):
+    """Full torch.load with stub ultralytics modules: every class they are
+    asked for is a bare nn.Module subclass, which restores the pickled
+    parameters and buffers (all `state_dict` needs). The stubs are removed
+    afterwards."""
+    installed = []
+    for name in _ULTRALYTICS_MODULES:
+        if name not in sys.modules:
+            mod = types.ModuleType(name)
+            mod.__getattr__ = lambda attr, _n=name: type(attr, (torch.nn.Module,),
+                                                         {"__module__": _n})
+            sys.modules[name] = mod
+            installed.append(name)
+    try:
+        return torch.load(path, map_location="cpu", weights_only=False)
+    finally:
+        for name in installed:
+            sys.modules.pop(name, None)

@@ -32,8 +32,9 @@ class ConvBN(nn.Module):
     a CPU tensor. The folded scale/bias and the packed kernel weight are
     computed once per weight (cached until the parameters change), not per
     call. Strided and non-3x3 convs use F.conv2d with symmetric k//2
-    padding: torch-style (1, 1) at stride 2, where Flax's SAME would pad
-    (0, 1)."""
+    padding (torch-style (1, 1) at stride 2, as the JAX package pads them
+    explicitly), then the folded BN and the activation in fp32 and one cast
+    to x's dtype."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, act: str = "relu", bn_eps: float = 1e-5):
@@ -70,11 +71,12 @@ class ConvBN(nn.Module):
             if on_cuda:
                 return conv3x3_bn_act_packed(x, wk, scale, bias, self.act)
             return conv3x3_bn_act_plain(x, w_hwio, scale, bias, self.act)
+        _, scale, bias, _ = self._folded(packed=False)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight.to(x.dtype),
                      stride=self.conv.stride, padding=self.conv.padding)
-        y = F.batch_norm(y, self.bn.running_mean, self.bn.running_var, self.bn.weight,
-                         self.bn.bias, training=False, eps=self.bn.eps)
-        return _act(y, self.act).permute(0, 2, 3, 1)
+        # Folded BN and the activation in fp32, one cast last, as K1 does.
+        y = _act(y.float() * scale[:, None, None] + bias[:, None, None], self.act)
+        return y.to(x.dtype).permute(0, 2, 3, 1)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -1,25 +1,35 @@
-"""Image resampling as two matrix products (PIL-parity bicubic resize).
+"""Image resampling as two matrix products (PIL-parity bicubic resize,
+OpenCV-parity bilinear letterbox).
 
 Counterpart of ``padel_analytics_tpu/ops/resize.py``. A resize from (H, W)
 to (H', W') is ``out = R_h @ img @ R_w^T`` per channel, with R_h, R_w the
-precomputed interpolation-weight matrices reproducing Pillow's convolution
-resampling (antialias and edge renormalisation included, coefficients on
-Pillow's 2^-22 fixed-point grid). Pillow quantises the intermediate image
-to uint8 between the horizontal and the vertical pass; `ResizePlan.apply`
-keeps that step, which byte-level parity needs.
+precomputed interpolation-weight matrices:
+
+- `pil_resample_matrix`: Pillow's convolution resampling (antialias and
+  edge renormalisation included, coefficients on Pillow's 2^-22 fixed-point
+  grid). Pillow quantises the intermediate image to uint8 between the
+  horizontal and the vertical pass; plans of the ``pil_*`` methods keep
+  that step, which byte-level parity needs.
+- `cv2_bilinear_matrix`: OpenCV INTER_LINEAR (half-pixel centres, two taps,
+  edge clamp, no antialias), the resize inside ultralytics' letterbox; no
+  intermediate quantisation.
 
 `apply` runs both passes as dense fp32 matmuls with TF32 off: TF32 keeps
 ~10 mantissa bits and would move results by whole intensity steps. The
-block-banded form of the JAX package is not ported yet.
+block-banded form of the JAX package is not ported yet; at 1080p the JAX
+package takes the dense form for both letterbox passes too (their MAC
+ratios, 5.0 and 2.6, do not clear its strict > 5 gate).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._fp32 import no_tf32
 
@@ -94,24 +104,46 @@ def pil_resample_matrix(src: int, dst: int, filter: str = "bicubic") -> np.ndarr
     return rows
 
 
+def cv2_bilinear_matrix(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weight matrix reproducing cv2.resize INTER_LINEAR
+    (half-pixel centres, 2-tap triangle, edge clamp, no antialias)."""
+    rows = np.zeros((dst, src), dtype=np.float64)
+    scale = src / dst
+    for i in range(dst):
+        x = (i + 0.5) * scale - 0.5
+        x0 = int(math.floor(x))
+        frac = x - x0
+        a = np.clip(x0, 0, src - 1)
+        b = np.clip(x0 + 1, 0, src - 1)
+        rows[i, a] += 1.0 - frac
+        rows[i, b] += frac
+    return rows.astype(np.float32)
+
+
 @dataclass(frozen=True)
 class ResizePlan:
     """Precomputed separable resize; `apply` runs as two matmuls."""
 
     r_h: np.ndarray  # (dst_h, src_h)
     r_w: np.ndarray  # (dst_w, src_w)
+    quantize_intermediate: bool = False
+
+    @property
+    def dst_hw(self) -> tuple[int, int]:
+        return (self.r_h.shape[0], self.r_w.shape[0])
 
     def apply(self, images: torch.Tensor) -> torch.Tensor:
         """Resize a (..., H, W, C) stack to (..., H', W', C) fp32: the
-        horizontal pass, Pillow's uint8 clip of the intermediate, then the
-        vertical pass."""
+        horizontal pass, Pillow's uint8 clip of the intermediate where the
+        plan quantises, then the vertical pass."""
         x = images.float()
         r_w = torch.as_tensor(self.r_w, dtype=torch.float32, device=x.device)
         r_h = torch.as_tensor(self.r_h, dtype=torch.float32, device=x.device)
         with no_tf32():
             x = torch.einsum("...hwc,pw->...hpc", x, r_w)
-            # Pillow's clip8: round half up, clamp to uint8.
-            x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+            if self.quantize_intermediate:
+                # Pillow's clip8: round half up, clamp to uint8.
+                x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
             return torch.einsum("...hwc,oh->...owc", x, r_h)
 
 
@@ -121,15 +153,78 @@ def resize_plan(
     dst_hw: tuple[int, int],
     method: str = "pil_bicubic",
 ) -> ResizePlan:
-    """Build (and cache) a Pillow-parity ResizePlan.
+    """Build (and cache) a ResizePlan.
 
     method: 'pil_bicubic' | 'pil_bilinear' | 'pil_nearest' | 'pil_lanczos'
+            | 'cv2_linear'
     """
-    if not method.startswith("pil_"):
-        raise ValueError(f"unknown resize method {method!r}")
-    filt = method[len("pil_"):]
     (sh, sw), (dh, dw) = src_hw, dst_hw
-    return ResizePlan(
-        r_h=pil_resample_matrix(sh, dh, filt),
-        r_w=pil_resample_matrix(sw, dw, filt),
+    if method.startswith("pil_"):
+        filt = method[len("pil_"):]
+        return ResizePlan(
+            r_h=pil_resample_matrix(sh, dh, filt),
+            r_w=pil_resample_matrix(sw, dw, filt),
+            quantize_intermediate=True,
+        )
+    if method == "cv2_linear":
+        return ResizePlan(r_h=cv2_bilinear_matrix(sh, dh), r_w=cv2_bilinear_matrix(sw, dw))
+    raise ValueError(f"unknown resize method {method!r}")
+
+
+@dataclass(frozen=True)
+class LetterboxPlan:
+    """Ultralytics letterbox: aspect-preserving cv2-linear resize, then
+    constant padding (value 114) to a stride-aligned canvas, as
+    LetterBox(auto=True, stride=32) does inside YOLO.predict."""
+
+    plan: ResizePlan
+    pad_top: int
+    pad_left: int
+    out_h: int
+    out_w: int
+    gain: float  # scale from source to resized
+
+    def apply(self, images: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, 3) source frames -> (..., out_h, out_w, 3) fp32."""
+        resized = self.plan.apply(images)
+        new_h, new_w = self.plan.dst_hw
+        pad_bottom = self.out_h - new_h - self.pad_top
+        pad_right = self.out_w - new_w - self.pad_left
+        return F.pad(resized, (0, 0, self.pad_left, pad_right, self.pad_top, pad_bottom),
+                     value=114.0)
+
+    def boxes_to_source(self, boxes_xyxy: torch.Tensor) -> torch.Tensor:
+        """Map (..., 4) xyxy boxes from letterboxed to source pixels."""
+        pad = torch.tensor([self.pad_left, self.pad_top, self.pad_left, self.pad_top],
+                           dtype=boxes_xyxy.dtype, device=boxes_xyxy.device)
+        return (boxes_xyxy - pad) / self.gain
+
+    def points_to_source(self, points_xy: torch.Tensor) -> torch.Tensor:
+        pad = torch.tensor([self.pad_left, self.pad_top], dtype=points_xy.dtype,
+                           device=points_xy.device)
+        return (points_xy - pad) / self.gain
+
+
+@functools.lru_cache(maxsize=16)
+def letterbox_plan(src_hw: tuple[int, int], imgsz: int, stride: int = 32,
+                   auto: bool = True) -> LetterboxPlan:
+    """Plan an ultralytics letterbox of (h, w) frames to imgsz: 1080x1920
+    goes to 360x640, padded to 384x640 with pad_top 12."""
+    h, w = src_hw
+    r = min(imgsz / h, imgsz / w)
+    new_w, new_h = round(w * r), round(h * r)
+    if auto:
+        out_w = math.ceil(new_w / stride) * stride
+        out_h = math.ceil(new_h / stride) * stride
+    else:
+        out_w = out_h = imgsz
+    dw, dh = (out_w - new_w) / 2, (out_h - new_h) / 2
+    pad_left, pad_top = int(round(dw - 0.1)), int(round(dh - 0.1))
+    return LetterboxPlan(
+        plan=resize_plan((h, w), (new_h, new_w), "cv2_linear"),
+        pad_top=pad_top,
+        pad_left=pad_left,
+        out_h=out_h,
+        out_w=out_w,
+        gain=r,
     )

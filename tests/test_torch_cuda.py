@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1 and K2 on the card against their plain PyTorch versions, and
+YOLOv8m and the NMS on the card against their CPU results.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -12,7 +13,9 @@ import torch
 
 from _k2_cases import SMALL, dense, small
 from padel_analytics_tpu_torch import _build
-from padel_analytics_tpu_torch.ops import conv3x3, heatmap
+from padel_analytics_tpu_torch.models.layers import lecun_normal_
+from padel_analytics_tpu_torch.models.yolov8 import YOLOv8
+from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +53,17 @@ def _bf16_close(got, want):
         (2, 6, 128, 128, 128, "relu"),  # TrackNet-like 64-wide tiles, exact fit
         (2, 5, 256, 64, 64, "relu"),    # 2 x 128 tiles (pixels on N), H = 5 overhangs
         (1, 4, 128, 27, 48, "silu"),    # pixels on N with the stem width, Cout 48
+        # YOLOv8m at the players path's 384x640 letterbox and the pose
+        # path's 1280x1280 squash:
+        (2, 12, 20, 288, 288, "silu"),  # P5 of detect: 12x20, Cout 288
+        (2, 12, 20, 576, 64, "silu"),   # box head at 12x20
+        (2, 24, 40, 192, 192, "silu"),  # P4 of detect: 24x40
+        (1, 24, 40, 384, 64, "silu"),   # box head at 24x40
+        (1, 96, 160, 48, 48, "silu"),   # P2 of detect: Cout 48 at width 160
+        (1, 40, 320, 48, 48, "silu"),   # P2 of pose: Cout 48 at width 320
+        (1, 40, 40, 576, 48, "silu"),   # pose keypoint head 576 -> 48
+        (1, 80, 80, 384, 48, "silu"),   # pose keypoint head 384 -> 48
+        (1, 48, 80, 192, 64, "silu"),   # box head at 48x80
     ],
 )
 def test_k1_matches_plain(dev, b, h, w, cin, cout, act):
@@ -66,6 +80,69 @@ def test_k1_matches_plain(dev, b, h, w, cin, cout, act):
     want = conv3x3.conv3x3_bn_act_plain(x, wt, scale, bias, act)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     _bf16_close(got, want)
+
+
+def test_k1_takes_a_channel_slice(dev):
+    """C2f hands K1 the halves of a channel split (non-contiguous views);
+    the wrapper copies them."""
+    g = np.random.default_rng(5)
+    y = torch.tensor(g.standard_normal((2, 24, 40, 384)), dtype=torch.bfloat16, device=dev)
+    x = y[..., 192:]
+    assert not x.is_contiguous()
+    wt = torch.tensor(g.standard_normal((3, 3, 192, 192)) / np.sqrt(9 * 192),
+                      dtype=torch.float32, device=dev)
+    scale = torch.ones(192, device=dev)
+    bias = torch.zeros(192, device=dev)
+    _bf16_close(conv3x3.conv3x3_bn_act(x, wt, scale, bias, "silu"),
+                conv3x3.conv3x3_bn_act_plain(x.contiguous(), wt, scale, bias, "silu"))
+
+
+# YOLOv8m in bf16 on the card against its fp32 plain path on the CPU, He-normal
+# random weights: sigmoid scores (abs) and box coordinates in input pixels
+# (abs) after ~90 bf16 layers (chip_smoke.py's bounds; measured <= 2e-4 and
+# <= 0.0074 px there).
+YOLO_SCORE_ATOL, YOLO_PIXEL_ATOL = 4e-3, 0.5
+
+
+def test_yolov8m_detect_bf16_matches_fp32(dev):
+    model = YOLOv8("m", 1)
+    lecun_normal_(model, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(np.sqrt(2.0))
+    model.eval()
+    x = torch.rand((2, 96, 160, 3), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        want = model(x)
+        model.to(dev)
+        before = conv3x3.launches
+        got = {k: v.cpu() for k, v in model(x.to(dev, torch.bfloat16)).items()}
+    assert conv3x3.launches == before + 52
+    assert float((got["scores"] - want["scores"]).abs().max()) <= YOLO_SCORE_ATOL
+    assert float((got["boxes"] - want["boxes"]).abs().max()) <= YOLO_PIXEL_ATOL
+    assert float(want["scores"].std()) > 0  # the scores depend on the input
+
+
+@pytest.mark.parametrize("scores", ["tied", "bf16"])
+def test_batched_nms_on_card_equals_cpu(dev, scores):
+    """The device half (stable top-k, gather, IoU > threshold) on the card
+    gives the CPU's slots exactly, ties included."""
+    g = np.random.default_rng(9)
+    b, a = 8, 2000
+    cx, cy = g.uniform(20, 600, (2, b, a))
+    w, h = g.uniform(8, 160, (2, b, a))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
+    if scores == "tied":
+        s = np.array([0.1, 0.55, 0.6, 0.75], np.float32)[g.integers(0, 4, (b, a))]
+    else:
+        s = torch.sigmoid(torch.tensor(g.normal(0, 1.5, (b, a)), dtype=torch.bfloat16).float())
+        s = s.numpy()
+    kw = dict(conf_thres=0.5, iou_thres=0.7, max_det=32, top_k=128)
+    want = nms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(s), **kw)
+    got = nms.batched_nms(torch.from_numpy(boxes).to(dev), torch.from_numpy(s).to(dev), **kw)
+    for gt, wt in zip(got, want):
+        assert gt.device.type == "cpu" and torch.equal(gt, wt)
 
 
 def test_k1_rejects_fp32(dev):

@@ -10,7 +10,12 @@ import pytest
 
 import padel_analytics_tpu_torch
 from padel_analytics_tpu_torch import _build
-from padel_analytics_tpu_torch.config import BallTrackerConfig, PipelineConfig
+from padel_analytics_tpu_torch.config import (
+    BallTrackerConfig,
+    PipelineConfig,
+    PlayerKeypointsTrackerConfig,
+    PlayersTrackerConfig,
+)
 
 PKG = Path(padel_analytics_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "padel_analytics_tpu")
@@ -94,13 +99,24 @@ def test_from_flat_reads_reference_names():
         "BALL_TRACKER_BATCH_SIZE": 16,
         "BALL_TRACKER_MEDIAN_MAX_SAMPLE_NUM": 100,
         "BALL_TRACKER_SAVE_PATH": "ball.json",
-        "PLAYERS_TRACKER_MODEL": "ignored.pt",
+        "PLAYERS_TRACKER_MODEL": "yolov8m.pt",
+        "PLAYERS_TRACKER_BATCH_SIZE": 4,
+        "PLAYERS_TRACKER_SAVE_PATH": "players.json",
+        "PLAYERS_KEYPOINTS_TRACKER_MODEL": "pose.pt",
+        "PLAYERS_KEYPOINTS_TRACKER_TRAIN_IMAGE_SIZE": 640,
+        "PLAYERS_KEYPOINTS_TRACKER_LOAD_PATH": "pose.json",
     }
     cfg = PipelineConfig.from_flat(flat)
     assert cfg.input_video_path == "in.mp4" and cfg.output_video_path == "out.mp4"
     assert cfg.collect_data is False
     assert cfg.ball == BallTrackerConfig(tracking_model_path="tracknet.pt", batch_size=16,
                                          median_max_sample_num=100, save_path="ball.json")
+    assert cfg.players == PlayersTrackerConfig(model_path="yolov8m.pt", batch_size=4,
+                                               save_path="players.json")
+    assert cfg.player_keypoints == PlayerKeypointsTrackerConfig(
+        model_path="pose.pt", train_image_size=640, load_path="pose.json")
+    assert (cfg.players.conf, cfg.players.iou, cfg.players.imgsz) == (0.5, 0.7, 640)
+    assert (cfg.player_keypoints.conf, cfg.player_keypoints.iou) == (0.25, 0.7)
     module = types.SimpleNamespace(**flat, lower_case="skipped")
     assert PipelineConfig.from_module(module) == cfg
     assert cfg.to_dict()["ball"]["seq_len"] == 8
@@ -109,3 +125,11 @@ def test_from_flat_reads_reference_names():
 @pytest.mark.parametrize("jax_field", ["use_pallas", "subpixel_up", "window_stride"])
 def test_unported_ball_options_are_absent(jax_field):
     assert jax_field not in BallTrackerConfig.__dataclass_fields__
+    if jax_field == "use_pallas":  # on CUDA the kernels are the path
+        assert jax_field not in PlayersTrackerConfig.__dataclass_fields__
+        assert jax_field not in PlayerKeypointsTrackerConfig.__dataclass_fields__
+
+
+def test_pose_config_refuses_other_sizes():
+    with pytest.raises(ValueError, match="640 or 1280"):
+        PlayerKeypointsTrackerConfig(train_image_size=960)

@@ -5,7 +5,10 @@ are uint8 intensities or exact fp32 tables, and must be EQUAL, except the
 raw resize of uniform-noise images: there the two fp32 matmuls sum in
 another order and a value that lands on a .5 rounding boundary may round
 the other way, so it is bounded at 1 intensity step on at most 0.1% of the
-values (measured: 7 of 20736 for the 54x96 -> 36x64 case, 0 for the other)."""
+values (measured: 7 of 20736 for the 54x96 -> 36x64 case, 0 for the other).
+The ultralytics letterbox of the players path: equal geometry, matrices and
+box/point mapping; its unquantised fp32 canvas within 1e-3 of the JAX
+package's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,3 +88,50 @@ def test_frame_preprocess_and_windows_match_jax(rng, bg_mode):
     jx = np.asarray(jbw.assemble_windows(jnp.asarray(want, jnp.float32), jnp.asarray(med_res),
                                          bg_mode, seq_len, batch))
     np.testing.assert_array_equal(x, jx.astype(np.float32))
+
+
+@pytest.mark.parametrize("src", [(1080, 1920), (721, 1283), (97, 131)])
+def test_letterbox_matches_jax(rng, src):
+    """Geometry and matrices equal; the resized canvas within 1e-3 of 255
+    (two fp32 matmuls in another summation order), the padding exactly 114;
+    boxes and points map back to the source equally."""
+    imgsz = 640 if src[0] > 200 else 64
+    plan, jplan = resize.letterbox_plan(src, imgsz), jres.letterbox_plan(src, imgsz)
+    assert (plan.pad_top, plan.pad_left, plan.out_h, plan.out_w, plan.gain) == (
+        jplan.pad_top, jplan.pad_left, jplan.out_h, jplan.out_w, jplan.gain)
+    np.testing.assert_array_equal(plan.plan.r_h, jplan.plan.r_h)
+    np.testing.assert_array_equal(plan.plan.r_w, jplan.plan.r_w)
+    assert not plan.plan.quantize_intermediate
+    if src == (1080, 1920):
+        assert (plan.out_h, plan.out_w, plan.pad_top, plan.pad_left) == (384, 640, 12, 0)
+        assert plan.plan.dst_hw == (360, 640)
+
+    img = rng.integers(0, 256, (1, *src, 3), dtype=np.uint8)
+    got = plan.apply(torch.from_numpy(img)).numpy()
+    want = np.asarray(jplan.apply(jnp.asarray(img)))
+    assert got.shape == want.shape == (1, plan.out_h, plan.out_w, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    new_h, new_w = plan.plan.dst_hw
+    inside = np.zeros(got.shape[1:3], bool)
+    inside[plan.pad_top: plan.pad_top + new_h, plan.pad_left: plan.pad_left + new_w] = True
+    assert np.all(got[0][~inside] == 114.0)
+
+    boxes = rng.uniform(0, imgsz, (5, 7, 4)).astype(np.float32)
+    np.testing.assert_array_equal(plan.boxes_to_source(torch.from_numpy(boxes)).numpy(),
+                                  np.asarray(jplan.boxes_to_source(jnp.asarray(boxes))))
+    pts = boxes[..., :2].copy()
+    np.testing.assert_array_equal(plan.points_to_source(torch.from_numpy(pts)).numpy(),
+                                  np.asarray(jplan.points_to_source(jnp.asarray(pts))))
+
+
+def test_cv2_linear_plan_matches_cv2(rng):
+    import cv2
+
+    img = rng.integers(0, 256, (50, 70, 3), dtype=np.uint8)
+    got = resize.resize_plan((50, 70), (37, 91), "cv2_linear").apply(
+        torch.from_numpy(img)).numpy()
+    ref = cv2.resize(img, (91, 37), interpolation=cv2.INTER_LINEAR).astype(np.float32)
+    # cv2 interpolates in fixed point; the plan in fp32: within 1 intensity step.
+    assert np.abs(got - ref).max() <= 1.0
+    np.testing.assert_array_equal(resize.cv2_bilinear_matrix(70, 91),
+                                  jres.cv2_bilinear_matrix(70, 91))
