@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's ball, players and pose paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players, pose and fused paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,21 +8,24 @@ is printed):
 1. report the card (nvidia-smi name and power limit) and the toolchain;
 2. build kernels K1 (conv3x3_bn_act) and K2 (heatmap_cc) from csrc/, one
    nvcc each, started together;
-3. K1 at the 11 distinct conv shapes of TrackNet at 288x512, batch 8 (relu),
-   at YOLOv8m's 6 stride-1 3x3 shapes at a 640x640 input, and at the shapes
-   the players and pose paths launch (YOLOv8m detect at the 384x640
+3. K1 at the 11 distinct conv shapes of TrackNet at 288x512 (relu), at the
+   shapes the players and pose paths launch (YOLOv8m detect at the 384x640
    letterbox of 1080p: 14 distinct in 52 convs; YOLOv8m-pose at 1280x1280:
-   20 in 58; traced from the models on the meta device), batch 8 (silu),
-   against the fp32 plain version; each timed beside its plain version, the
-   library call for the same function (cuDNN bf16 conv + affine + act) and
-   its bound (the larger of bytes over 3.35 TB/s and FLOPs over 989
-   TFLOP/s). Sums over each model's convs in call order are printed, and
-   the time of the C2f split copies K1's wrapper makes;
-4. K2 on batch-8 288x512 heatmaps at both cluster sizes (8 and 16): fuzzed
-   blobs (empty map and exact ties included), uniform masks at 10, 50 and
-   100% and bars through every band, each bit-equal to the plain version
-   and timed; cudaOccupancyMaxActiveClusters of each size and the plan's
-   choice printed;
+   20 in 58; traced from the models on the meta device; silu), each at the
+   per-tracker batch of 8 and at the fused chunk of 16, and at YOLOv8m's 6
+   stride-1 3x3 shapes at a 640x640 input (batch 8), against the fp32 plain
+   version; each timed beside its plain version, the library call for the
+   same function (cuDNN bf16 conv + affine + act) and its bound (the larger
+   of bytes over 3.35 TB/s and FLOPs over 989 TFLOP/s). Sums over each
+   model's convs in call order are printed at both batches, and over one
+   fused chunk's 127 launches (the kernels line's numbers), with the time of
+   the C2f split copies K1's wrapper makes;
+4. K2 on 288x512 heatmaps at both cluster sizes (8 and 16), at batch 8 and
+   at the fused chunk of 16 (the kernels line's numbers): fuzzed blobs
+   (empty map and exact ties included), uniform masks (10, 50 and 100% at
+   batch 8, 50% at 16) and bars through every band, each bit-equal to the
+   plain version and timed; cudaOccupancyMaxActiveClusters of each size and
+   the plan's choice printed;
 5. the models: TrackNet, YOLOv8m detect and YOLOv8m-pose on the card (bf16,
    K1) against their fp32 plain path on the CPU, on a small input;
 6. the ball slice: BallTracker at its full configuration (288x512, seq_len 8,
@@ -43,7 +46,23 @@ is printed):
    (np.stack, upload, preprocess + model, NMS, predict_sample);
 8. the pose slice: the same with PlayerKeypointsTracker (YOLOv8m-pose, PIL
    squash to 1280, conf .25): 58 K1 launches a chunk, 13 keypoints a
-   detection.
+   detection;
+9. the fused pipeline with decisive fake models (a cell detector scoring
+   0.9 or 0.1, a bright-pixel TrackNet) on a 45-frame 1920x1080 clip:
+   FusedPipeline.run with rgb ingest at chunk 16 and 8 must give the
+   per-tracker paths' caches exactly, frame by frame (a race between the
+   streams would show here);
+10. the main path: TrackingRunner(fused=True) over all four trackers at full
+   width (YOLOv8m detect with the polygon gate, YOLOv8m-pose at 1280,
+   TrackNet 288x512, a fixed court; cls heads calibrated) on a 128-frame
+   1920x1080 rally held in memory, for the i420 then the rgb ingest at
+   chunk 16: the launch counters zeroed before and read after the first
+   pass (K1 110 a chunk of clip frames + 17 a chunk for TrackNet, K2 one a
+   chunk), a second pass equal to the first and timed, measure_device_split
+   (device ms a chunk of each sub-step, host pack ms a frame), and a third
+   pass under torch.profiler (device busy share over all streams, the top
+   device ops, kernel launches a chunk, the longest device idle gaps, host
+   synchronisations).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -76,8 +95,23 @@ from padel_analytics_tpu_torch.models.tracknet import make_tracknet
 from padel_analytics_tpu_torch.models.yolov8 import C2f, YOLOv8
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
 from padel_analytics_tpu_torch.ops.polygon import PolygonZone
-from padel_analytics_tpu_torch.trackers import BallTracker, PlayerKeypointsTracker, PlayerTracker
-from padel_analytics_tpu_torch.utils.video import VideoInfo
+from padel_analytics_tpu_torch.trackers import (
+    BallTracker,
+    FusedPipeline,
+    Keypoint,
+    Keypoints,
+    KeypointsTracker,
+    PlayerKeypointsTracker,
+    PlayerTracker,
+    TrackingRunner,
+)
+from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
+
+# The decisive fakes of the fused check (outputs far from every threshold, so
+# only a plumbing fault such as a race between streams or a misaligned chunk
+# can change a cache) are the port's tests' own; that module imports no JAX.
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from _torch_fused_cases import BrightTrackNet, CellDetector  # noqa: E402
 
 # TrackNet at 288x512: (Cin, Cout, H, W) of its 17 stride-1 3x3 ConvBNs, in
 # call order; 11 distinct shapes.
@@ -97,6 +131,11 @@ YOLO_CONVS = [
     (192, 64, 80, 80), (576, 192, 20, 20),
 ]
 BATCH = 8
+# The fused main path's chunk: det, pose and TrackNet each run at this batch,
+# K2 on this many heatmaps. K1 launches of the fused path: detect's 52 and
+# pose's 58 on each chunk holding clip frames, TrackNet's 17 on every chunk
+# (the ball's tail included).
+FUSED_CHUNK = 16
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM3 rate.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 # K1 bound: kernel and reference round (nearly) the same fp32 sum to bf16,
@@ -208,8 +247,8 @@ def k1_bound_ms(cin, cout, h, w, batch=BATCH) -> tuple[float, float]:
     return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
 
 
-def _k1_shape(dev, g, cin, cout, h, w, act) -> dict:
-    x = torch.randn((BATCH, h, w, cin), generator=g).to(dev, torch.bfloat16)
+def _k1_shape(dev, g, cin, cout, h, w, act, batch) -> dict:
+    x = torch.randn((batch, h, w, cin), generator=g).to(dev, torch.bfloat16)
     wt = (torch.randn((3, 3, cin, cout), generator=g) / math.sqrt(9 * cin)).to(dev)
     scale = (torch.rand(cout, generator=g) + 0.5).to(dev)
     bias = (torch.randn(cout, generator=g) * 0.1).to(dev)
@@ -226,10 +265,10 @@ def _k1_shape(dev, g, cin, cout, h, w, act) -> dict:
     kernel_ms = graph_time_ms(lambda: conv3x3.conv3x3_bn_act_packed(x, wk, scale, bias, act))
     library_ms = graph_time_ms(lambda: _library_bf16(x, w_oihw, scale, bias, act))
     plain_ms = graph_time_ms(lambda: conv3x3.conv3x3_bn_act_plain(x, wt, scale, bias, act), reps=3)
-    ops_ms, bytes_ms = k1_bound_ms(cin, cout, h, w)
+    ops_ms, bytes_ms = k1_bound_ms(cin, cout, h, w, batch)
     bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
-    tflop = 2 * BATCH * h * w * cout * 9 * cin / 1e9
-    print(f"K1 {cin:>3}->{cout:<3} @{h}x{w} B={BATCH} {act}: kernel {kernel_ms:.3f} ms "
+    tflop = 2 * batch * h * w * cout * 9 * cin / 1e9
+    print(f"K1 {cin:>3}->{cout:<3} @{h}x{w} B={batch} {act}: kernel {kernel_ms:.3f} ms "
           f"({tflop / kernel_ms:.1f} TFLOP/s, {100 * bound_ms / kernel_ms:.1f}% of its "
           f"{bound_ms:.4f} ms {bound_by} bound), cuDNN bf16 {library_ms:.3f} ms "
           f"({tflop / library_ms:.1f} TFLOP/s), plain fp32 {plain_ms:.3f} ms, "
@@ -269,12 +308,13 @@ def c2f_split_shapes(model, h: int, w: int) -> list[tuple[int, int, int]]:
 _SUM_KEYS = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms")
 
 
-def _k1_sum(name: str, convs, timed: dict) -> dict:
-    """K1 and its yardsticks summed over a model's convs in call order."""
-    tot = {k: sum(timed[s][k] for s in convs) for k in _SUM_KEYS}
+def _k1_sum(name: str, calls: list[dict], batch: int) -> dict:
+    """K1 and its yardsticks summed over `calls`, one timing per launch in
+    call order."""
+    tot = {k: sum(c[k] for c in calls) for k in _SUM_KEYS}
     # The sum is bound by operations where they take most of the bound.
     tot["bound_by"] = "operations" if tot.pop("ops_ms") >= tot["bound_ms"] / 2 else "bytes"
-    print(f"K1 over {name}'s {len(convs)} convs at B={BATCH}: kernel {tot['ms']:.3f} ms "
+    print(f"K1 over {name}'s {len(calls)} convs at B={batch}: kernel {tot['ms']:.3f} ms "
           f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of the {tot['bound_ms']:.3f} ms "
           f"{tot['bound_by']} bound), cuDNN bf16 {tot['library_ms']:.3f} ms, plain fp32 "
           f"{tot['plain_ms']:.3f} ms")
@@ -294,31 +334,48 @@ def _split_copies(dev, name: str, splits) -> None:
 
 
 def phase_k1(dev) -> dict:
+    """K1 at every call shape of the three models, at the per-tracker
+    paths' batch of 8 and at the fused main path's chunk of 16 (TrackNet
+    there runs one window a chunk frame). The kernels line carries one fused
+    chunk's K1 work: its 127 launches summed at B=16."""
     g = torch.Generator(device="cpu").manual_seed(1)
     models = {"detect": (YOLOv8("m", 1), DETECT_HW), "pose": (YOLOv8("m", 1, 13), POSE_HW)}
     detect, pose = (k1_call_shapes(m, *hw) for m, hw in models.values())
     check(len(detect) == 52 and len(pose) == 58, f"K1 call sites {len(detect)}, {len(pose)}")
-    tracknet = {s: _k1_shape(dev, g, *s, "relu")
-                for s in sorted(set(TRACKNET_CONVS), key=TRACKNET_CONVS.index)}
-    yolo = {}  # silu shapes, each timed once
-    for s in [*YOLO_CONVS, *detect, *pose]:
-        if s not in yolo:
-            yolo[s] = _k1_shape(dev, g, *s, "silu")
-    tot = _k1_sum("TrackNet", TRACKNET_CONVS, tracknet)
+    timed: dict = {}  # (shape, act, batch) -> timing, each checked and timed once
+
+    def calls(convs, act, batch) -> list[dict]:
+        for s in convs:
+            if (s, act, batch) not in timed:
+                timed[s, act, batch] = _k1_shape(dev, g, *s, act, batch)
+        return [timed[s, act, batch] for s in convs]
+
+    paths = {"tracknet_288x512": ("TrackNet", TRACKNET_CONVS, "relu"),
+             "yolov8m_detect_384x640": ("YOLOv8m detect @384x640", detect, "silu"),
+             "yolov8m_pose_1280x1280": ("YOLOv8m-pose @1280x1280", pose, "silu")}
+    sums, chunk_calls = {}, []
+    for batch in (BATCH, FUSED_CHUNK):
+        sums[f"b{batch}"] = {}
+        for key, (label, convs, act) in paths.items():
+            cs = calls(convs, act, batch)
+            sums[f"b{batch}"][key] = _k1_sum(label, cs, batch)
+            if batch == FUSED_CHUNK:
+                chunk_calls += cs
+    yolo640 = calls(YOLO_CONVS, "silu", BATCH)
     print(f"K1 over YOLOv8m's 6 shapes at 640x640 (once each) at B={BATCH}: kernel "
-          f"{sum(yolo[s]['ms'] for s in YOLO_CONVS):.3f} ms, cuDNN bf16 "
-          f"{sum(yolo[s]['library_ms'] for s in YOLO_CONVS):.3f} ms")
-    sums = {"tracknet_288x512": dict(tot),
-            "yolov8m_detect_384x640": _k1_sum("YOLOv8m detect @384x640", detect, yolo),
-            "yolov8m_pose_1280x1280": _k1_sum("YOLOv8m-pose @1280x1280", pose, yolo)}
+          f"{sum(c['ms'] for c in yolo640):.3f} ms, cuDNN bf16 "
+          f"{sum(c['library_ms'] for c in yolo640):.3f} ms")
+    chunk = _k1_sum(f"one fused chunk of {FUSED_CHUNK} (TrackNet + detect + pose)",
+                    chunk_calls, FUSED_CHUNK)
     for name, (model, hw) in models.items():
         _split_copies(dev, name, c2f_split_shapes(model, *hw))
     return {"name": "conv3x3_bn_act", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/conv3x3_bn_act.cu",
             "replaces": "padel_analytics_tpu/ops/pallas_conv.py:211, "
                         "padel_analytics_tpu/ops/pallas_conv.py:322",
-            "max_abs_err": max(v["max_err"] for v in [*tracknet.values(), *yolo.values()]),
-            **tot, "sums": sums}
+            "max_abs_err": max(v["max_err"] for v in timed.values()),
+            "timed_per": f"the {len(chunk_calls)} K1 launches of one fused chunk, B={FUSED_CHUNK}",
+            **chunk, "sums": sums}
 
 
 def _heatmaps(rng, n, h, w) -> np.ndarray:
@@ -395,17 +452,35 @@ def phase_k2(dev) -> dict:
                          plans)
              for d in (0.1, 0.5, 1.0)}
     _k2_case("band-crossing bars", torch.from_numpy(_bars(rng, BATCH, h, w)).to(dev), plans)
+
+    def bound_ms(batch: int) -> float:
+        # The fp32 heatmaps read once and three int32 results written once;
+        # its few integer operations per pixel are far below the byte time.
+        return (batch * h * w * 4 + 3 * batch * 4) / PEAK_BYTES_S * 1e3
+
     print(f"K2 B={BATCH} {h}x{w} at the plan's cluster {chosen}: blobs {blobs[chosen]:.4f} ms, "
           f"dense 50% {dense[0.5][chosen]:.4f} ms; plain (blobs) {plain_ms:.3f} ms")
-    # Bound: the fp32 heatmaps read once and three int32 results written once;
-    # its few integer operations per pixel are far below the byte time.
-    bound_ms = (hms.numel() * 4 + 3 * BATCH * 4) / PEAK_BYTES_S * 1e3
+    per_tracker = {"ms": blobs[chosen], "dense_ms": dense[0.5][chosen], "plain_ms": plain_ms,
+                   "bound_ms": bound_ms(BATCH)}
+    # The fused main path decodes a chunk's FUSED_CHUNK heatmaps in one launch.
+    b = FUSED_CHUNK
+    hms = torch.from_numpy(_heatmaps(rng, b, h, w)).to(dev)
+    blobs = _k2_case("blobs at the fused chunk (empty map and tie included)", hms, plans)
+    plain_ms = cuda_time_ms(lambda: heatmap.decode_heatmaps_plain(hms), reps=3)
+    dense = _k2_case("uniform mask 50% at the fused chunk",
+                     torch.from_numpy((rng.random((b, h, w)) < 0.5).astype(np.float32)).to(dev),
+                     plans)
+    _k2_case("band-crossing bars at the fused chunk",
+             torch.from_numpy(_bars(rng, b, h, w)).to(dev), plans)
+    print(f"K2 B={b} {h}x{w} at the plan's cluster {chosen}: blobs {blobs[chosen]:.4f} ms, "
+          f"dense 50% {dense[chosen]:.4f} ms; plain (blobs) {plain_ms:.3f} ms")
     return {"name": "heatmap_cc", "route": "cuda",
             "source": "padel_analytics_tpu_torch/csrc/heatmap_cc.cu",
             "replaces": "padel_analytics_tpu/ops/pallas_cc.py:108",
-            "max_abs_err": 0, "ms": blobs[chosen], "dense_ms": dense[0.5][chosen],
-            "cluster": chosen, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": 0, "timed_per": f"one fused chunk's decode, B={b}",
+            "ms": blobs[chosen], "dense_ms": dense[chosen], "cluster": chosen,
+            "plain_ms": plain_ms, "bound_ms": bound_ms(b), "bound_by": "bytes",
+            "library_ms": None, "b8": per_tracker}
 
 
 def phase_model(dev) -> None:
@@ -467,7 +542,7 @@ def _yolo_model_check(dev, nk: int) -> None:
 
 def synthetic_rally(n: int, seed: int) -> list[np.ndarray]:
     """A 1920x1080 RGB clip: a blue court with white lines, sensor noise and a
-    bright ball on a parabolic path."""
+    bright ball on a parabolic path (one every 64 frames)."""
     rng = np.random.default_rng(seed)
     h, w = 1080, 1920
     court = np.empty((h, w, 3), np.uint8)
@@ -479,8 +554,9 @@ def synthetic_rally(n: int, seed: int) -> list[np.ndarray]:
     disk = ys**2 + xs**2 <= 64
     for i in range(n):
         f = court + rng.integers(0, 12, (h, w, 3), dtype=np.uint8)
-        cx = 200 + 24 * i
-        cy = int(900 - 30 * i + 0.45 * i * i)
+        j = i % 64  # a new rally every 64 frames keeps the ball in the frame
+        cx = 200 + 24 * j
+        cy = int(900 - 30 * j + 0.45 * j * j)
         patch = f[cy - 8: cy + 9, cx - 8: cx + 9]
         patch[disk] = (235, 240, 80)
         frames.append(f)
@@ -537,36 +613,83 @@ def phase_slice() -> dict:
 def profile_pass(tracker, frames, kernels=(("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")),
                  label="slice", top_n: int = 0) -> None:
     """A third pass under torch.profiler: device busy time (kernels and
-    copies, one stream) against the pass's wall time, and each kernel's
-    device time. Measured, not checked: the profiler's own cost slows the
-    host side of this pass."""
+    copies) against the pass's wall time, and each kernel's device time.
+    Measured, not checked: the profiler's own cost slows the host side of
+    this pass."""
+    tracker.restart()
+    profile_run(lambda: tracker.predict_and_update(iter(frames), total_frames=len(frames)),
+                label, kernels, top_n)
+
+
+def _union_ms(intervals) -> tuple[float, list[tuple[float, float]]]:
+    """(ms covered by the union of (start, end) us intervals, the gaps
+    between the merged intervals as (start us, length ms))."""
+    busy, gaps, cur = 0.0, [], None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+                gaps.append((cur[1], (a - cur[1]) / 1e3))
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy / 1e3, gaps
+
+
+def profile_run(run, label: str, kernels, top_n: int = 0, chunks: int = 0,
+                gaps: int = 0) -> dict:
+    """`run()` under torch.profiler: device busy share (the union of every
+    kernel and copy interval over all streams, against the run's wall
+    time), each kernel's device time and launches (a chunk, where `chunks`
+    is given), the `top_n` device ops, the `gaps` longest device idle
+    gaps, and the host's synchronising CUDA calls. Measured, not checked:
+    the profiler's own cost slows the host side of the run."""
     from torch.profiler import ProfilerActivity, profile
 
-    tracker.restart()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tracker.predict_and_update(iter(frames), total_frames=len(frames))
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         print(f"{label} profile: device time not measured (the profiler saw no device activity)")
-        return
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        return {}
+    busy_ms, idle = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
+    summed_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     parts = []
     for name, key in kernels:
         ev = [e for e in dev if key in e.name]
+        per = f", {len(ev) / chunks:.1f} a chunk" if chunks else ""
         parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in ev) / 1e3:.3f} ms "
-                     f"in {len(ev)} launches")
+                     f"in {len(ev)} launches{per}")
     print(f"{label} profile: pass {wall_ms:.1f} ms under the profiler, device busy "
-          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); " + "; ".join(parts))
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%; summed over streams "
+          f"{summed_ms:.1f} ms); " + "; ".join(parts))
     by_name: dict[str, list[float]] = {}
     for e in dev:
         by_name.setdefault(e.name[:70], []).append(e.time_range.elapsed_us() / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top_n]
     for name, t in top:
         print(f"  {label} device: {sum(t):8.3f} ms in {len(t):4d}  {name}")
+    if gaps:
+        t_first = min(e.time_range.start for e in dev)
+        longest = sorted(idle, key=lambda g: -g[1])[:gaps]
+        print(f"  {label} longest device idle gaps: " + ", ".join(
+            f"{ms:.2f} ms at +{(at - t_first) / 1e3:.1f} ms" for at, ms in longest)
+            + f" ({len(idle)} gaps, {sum(g[1] for g in idle):.1f} ms in all)")
+        syncs = {}
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CPU and e.name in (
+                    "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                    "cudaMemcpy"):
+                syncs[e.name] = syncs.get(e.name, 0) + 1
+        print(f"  {label} host synchronising CUDA calls: {syncs or 'none recorded'}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
 # The players' polygon gate: the synthetic rally's court from its far line
@@ -759,6 +882,179 @@ def phase_pose(frames) -> dict:
         return run_tracker_slice(tracker, frames, save, 58, _check_pose)
 
 
+# A fixed court for the synthetic rally: 12 points on its lines (the
+# polygon's corners among them).
+COURT_KEYPOINTS = [(300, 1080), (1620, 1080), (300, 905), (960, 905), (1620, 905), (300, 527),
+                   (1620, 527), (300, 155), (960, 155), (1620, 155), (300, 150), (1620, 150)]
+
+
+def fixed_court(save=None) -> KeypointsTracker:
+    return KeypointsTracker(
+        fixed_keypoints_detection=Keypoints(
+            [Keypoint(id=i, xy=(float(x), float(y))) for i, (x, y) in enumerate(COURT_KEYPOINTS)]),
+        save_path=save)
+
+
+def _json(results) -> list:
+    return [r.serialize() for r in results]
+
+
+def decisive_clip(n: int, seed: int) -> list[np.ndarray]:
+    """1920x1080: a dark noisy court, four red player-sized figures (bright
+    to the detector, dark on average to the TrackNet) and a bright ball."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[-8:9, -8:9]
+    disk = ys**2 + xs**2 <= 64
+    frames = []
+    for i in range(n):
+        f = rng.integers(20, 30, (1080, 1920, 3), dtype=np.uint8)
+        for x0, y0, vx in ((300, 300, 9), (1400, 350, -8), (500, 700, 7), (1300, 720, -6)):
+            f[y0: y0 + 180, x0 + vx * i: x0 + vx * i + 70] = (250, 60, 60)
+        cx, cy = 200 + 30 * i, int(900 - 30 * i + 0.45 * i * i)
+        f[cy - 8: cy + 9, cx - 8: cx + 9][disk] = (235, 240, 80)
+        frames.append(f)
+    return frames
+
+
+def _fake_trackers(n: int):
+    players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                            config=PlayersTrackerConfig())
+    pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig())
+    ball = BallTracker(None, config=BallTrackerConfig())
+    players.engine.model = CellDetector(pose=False)
+    pose.engine.model = CellDetector(pose=True)
+    ball.tracknet.model = BrightTrackNet()
+    court = fixed_court()
+    info = VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n)
+    for t in (players, pose, ball, court):
+        t.video_info_post_init(info)
+    return players, pose, ball, court
+
+
+def phase_fused_decisive() -> None:
+    """The fused pipeline against the per-tracker paths with decisive fakes
+    at 1080p, rgb ingest, chunk 16 and 8, on a clip whose length is not a
+    multiple of either: every cache equal frame by frame."""
+    n = 45
+    frames = decisive_clip(n, seed=12)
+    players, pose, ball, _ = _fake_trackers(n)
+    with torch.inference_mode():
+        for tracker in (players, pose, ball):
+            tracker.predict_and_update(iter(frames), total_frames=n)
+    want = {"players": _json(players.results), "players_keypoints": _json(pose.results),
+            "ball": _json(ball.results)}
+    found = (sum(map(len, want["players"])), sum(map(len, want["players_keypoints"])),
+             sum(b["visibility"] for b in want["ball"]))
+    check(all(found), f"decisive fakes found nothing: {found}")
+    for chunk in (16, 8):
+        out = FusedPipeline(*_fake_trackers(n), chunk=chunk, ingest="rgb").run(iter(frames), n)
+        check(len(out["keypoints"]) == n, f"fused chunk {chunk}: {len(out['keypoints'])} courts")
+        for key, ref in want.items():
+            got = _json(out[key])
+            check(len(got) == n, f"fused chunk {chunk} {key}: {len(got)} results for {n} frames")
+            bad = [f for f in range(n) if got[f] != ref[f]]
+            check(not bad, f"fused chunk {chunk} {key} differs from the per-tracker path at "
+                           f"frames {bad[:10]}")
+    print(f"fused decisive check: {n} frames 1920x1080, rgb, chunk 16 and 8 equal to the "
+          f"per-tracker paths frame by frame ({found[0]} boxes, {found[1]} poses, "
+          f"{found[2]} visible balls)")
+
+
+def _fused_pass(runner, trackers) -> float:
+    runner.restart()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check("fused_inference" in runner.stage_times, "the fused path did not run")
+    return seconds
+
+
+def phase_fused(frames) -> dict:
+    """The main path at full width through TrackingRunner(fused=True), for
+    each ingest. Returns the launch counts of the first i420 pass."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    real_chunks = -(-n // FUSED_CHUNK)
+    chunks = -(-(n + 7) // FUSED_CHUNK)
+    want_k1 = 110 * real_chunks + 17 * chunks
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        saves = {name: Path(tmp) / f"{name}.json" for name in ("players", "pose", "ball", "court")}
+        players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                                config=PlayersTrackerConfig(), save_path=saves["players"])
+        pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig(),
+                                      save_path=saves["pose"])
+        ball = BallTracker(None, config=BallTrackerConfig(), save_path=saves["ball"])
+        court = fixed_court(saves["court"])
+        calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in (players, pose)}
+        trackers = (players, pose, ball, court)
+        for ingest in ("i420", "rgb"):
+            runner = TrackingRunner(list(trackers), clip, tmp, fused=True,
+                                    fused_chunk=FUSED_CHUNK, fused_ingest=ingest, render=False,
+                                    collect_data=False)
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first_s = _fused_pass(runner, trackers)
+            counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            check(counts["conv3x3_bn_act"] == want_k1,
+                  f"fused {ingest}: K1 launches {counts['conv3x3_bn_act']} != {want_k1}")
+            check(counts["heatmap_cc"] == chunks,
+                  f"fused {ingest}: K2 launches {counts['heatmap_cc']} != {chunks}")
+            launches = launches or counts
+            for t in trackers:
+                check(len(t.results) == n, f"fused {ingest} {t}: {len(t.results)} results")
+                check(len(json.loads(t.save_path.read_text())) == n, f"{t}: saved JSON cache")
+            found = (f"{_check_players(players.results)}; {_check_pose(pose.results)}; "
+                     f"{sum(b.visibility for b in ball.results)} visible balls")
+            first = [_json(t.results) for t in trackers]
+            second_s = _fused_pass(runner, trackers)
+            check([_json(t.results) for t in trackers] == first,
+                  f"fused {ingest}: second pass differs")
+            print(f"fused {ingest}: {n} frames 1920x1080, chunk {FUSED_CHUNK}, {found}; first "
+                  f"pass {n / first_s:.1f} frames/s, second pass {n / second_s:.1f} frames/s "
+                  f"(stage fused_inference {runner.stage_times['fused_inference']:.3f} s); peak "
+                  f"device memory {peak_gib:.2f} GiB; launches {counts}")
+            split = FusedPipeline(players, pose, ball, court, chunk=FUSED_CHUNK,
+                                  ingest=ingest).measure_device_split(iter(frames), n, n_chunks=4)
+            per_chunk = {k: split[k] / 4 * 1e3 for k in ("upload_s", "det_s", "pose_s", "ball_s")}
+            print(f"fused {ingest} device split, ms a chunk of {FUSED_CHUNK}: " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in per_chunk.items())
+                  + f"; sub-steps {split['device_ms_per_frame']:.3f} ms a frame "
+                    f"({split['device_fps']:.1f} frames/s); host pack "
+                    f"{split['pack_s'] / split['frames'] * 1e3:.3f} ms a frame")
+            runner.restart()
+            profile_run(runner.run, f"fused {ingest}",
+                        (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")), top_n=10,
+                        chunks=chunks, gaps=5)
+        print(f"fused cls calibration: {calib}")
+    i420_ms, rgb_ms = _pack_one_ms(frames[0])
+    print(f"host pack of one 1920x1080 frame on one thread: rgb_to_i420 {i420_ms:.2f} ms, "
+          f"RGB copy {rgb_ms:.2f} ms (medians of 9)")
+    return launches
+
+
+def _pack_one_ms(frame) -> tuple[float, float]:
+    """Median ms of packing one frame on this thread: I420, and the RGB copy."""
+    from padel_analytics_tpu_torch.ops.color import rgb_to_i420
+
+    i420 = np.empty((frame.shape[0] * 3 // 2, frame.shape[1]), np.uint8)
+    rgb = np.empty_like(frame)
+    out = []
+    for fn in (lambda: rgb_to_i420(frame, out=i420), lambda: np.copyto(rgb, frame)):
+        fn()
+        times = []
+        for _ in range(9):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append(float(np.median(times)))
+    return out[0], out[1]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -772,9 +1068,12 @@ def main() -> None:
     frames = synthetic_players(64, seed=9)
     by_path["players"] = phase_players(frames)
     by_path["pose"] = phase_pose(frames)
-    k1["launches"] = sum(v["conv3x3_bn_act"] for v in by_path.values())
-    k1["launches_by_path"] = {p: v["conv3x3_bn_act"] for p, v in by_path.items()}
-    k2["launches"] = by_path["ball"]["heatmap_cc"]
+    phase_fused_decisive()
+    by_path["fused"] = phase_fused(synthetic_players(128, seed=9))
+    # The main path is the fused pipeline: its launches are the kernels'.
+    for k, name in ((k1, "conv3x3_bn_act"), (k2, "heatmap_cc")):
+        k["launches"] = by_path["fused"][name]
+        k["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
     print(smi)
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

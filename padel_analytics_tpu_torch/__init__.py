@@ -1,1 +1,2 @@
-"""PyTorch / CUDA port of padel_analytics_tpu (the ball-tracking path so far)."""
+"""PyTorch / CUDA port of padel_analytics_tpu: the ball, players, pose and
+fixed-court trackers and the fused single-upload pipeline so far."""

@@ -1,8 +1,8 @@
 """Typed configuration for the ported trackers.
 
-Counterpart of ``padel_analytics_tpu/config.py``: the ball, players and
-player-pose tracker configs and the `PipelineConfig` fields the ported
-paths read. `from_flat` / `from_module` accept the reference's flat config
+Counterpart of ``padel_analytics_tpu/config.py``: the ball, players,
+player-pose and court-keypoints tracker configs and the `PipelineConfig`
+fields the ported paths read. `from_flat` / `from_module` accept the reference's flat config
 names. The JAX package's ``use_pallas`` switch has no counterpart: on CUDA
 the hand-written kernels are the path.
 """
@@ -62,6 +62,29 @@ class PlayerKeypointsTrackerConfig:
 
 
 @dataclass
+class CourtKeypointsTrackerConfig:
+    """Court 12-keypoint detection (reference: 'fixed' user keypoints, a
+    'yolo' pose model with a hard-coded index remap, or a 'resnet' 24-dim
+    sigmoid regression). The port runs the fixed mode only so far."""
+
+    model_path: Optional[str] = None
+    model_type: str = "yolo"  # "resnet" | "yolo"
+    model_variant: str = "m"  # YOLOv8 variant for the 'yolo' mode
+    batch_size: int = 8
+    number_keypoints: int = 12
+    train_image_size: int = 640
+    resnet_image_size: int = 224
+    conf: float = 0.5
+    iou: float = 0.7
+    load_path: Optional[str] = None
+    save_path: Optional[str] = None
+
+    def __post_init__(self):
+        if self.model_type not in ("resnet", "yolo"):
+            raise ValueError("model_type must be 'resnet' or 'yolo'")
+
+
+@dataclass
 class BallTrackerConfig:
     """TrackNet ball tracking (reference: 512x288, seq_len 8, stride 1,
     median over <= 400 frames)."""
@@ -89,9 +112,14 @@ class PipelineConfig:
     collect_data_path: str = "data.csv"
     max_frames: Optional[int] = None
     render_video: bool = True
+    fixed_court_keypoints_load_path: Optional[str] = None
+    fixed_court_keypoints_save_path: Optional[str] = None
     players: PlayersTrackerConfig = field(default_factory=PlayersTrackerConfig)
     player_keypoints: PlayerKeypointsTrackerConfig = field(
         default_factory=PlayerKeypointsTrackerConfig
+    )
+    court_keypoints: CourtKeypointsTrackerConfig = field(
+        default_factory=CourtKeypointsTrackerConfig
     )
     ball: BallTrackerConfig = field(default_factory=BallTrackerConfig)
 
@@ -107,6 +135,8 @@ class PipelineConfig:
             collect_data_path=get("COLLECT_DATA_PATH", "data.csv"),
             max_frames=get("MAX_FRAMES"),
             render_video=get("RENDER_VIDEO", True),
+            fixed_court_keypoints_load_path=get("FIXED_COURT_KEYPOINTS_LOAD_PATH"),
+            fixed_court_keypoints_save_path=get("FIXED_COURT_KEYPOINTS_SAVE_PATH"),
         )
         cfg.players = PlayersTrackerConfig(
             model_path=get("PLAYERS_TRACKER_MODEL"),
@@ -121,6 +151,13 @@ class PipelineConfig:
             batch_size=get("PLAYERS_KEYPOINTS_TRACKER_BATCH_SIZE", 8),
             load_path=get("PLAYERS_KEYPOINTS_TRACKER_LOAD_PATH"),
             save_path=get("PLAYERS_KEYPOINTS_TRACKER_SAVE_PATH"),
+        )
+        cfg.court_keypoints = CourtKeypointsTrackerConfig(
+            model_path=get("KEYPOINTS_TRACKER_MODEL"),
+            batch_size=get("KEYPOINTS_TRACKER_BATCH_SIZE", 8),
+            model_type=get("KEYPOINTS_TRACKER_MODEL_TYPE", "yolo"),
+            load_path=get("KEYPOINTS_TRACKER_LOAD_PATH"),
+            save_path=get("KEYPOINTS_TRACKER_SAVE_PATH"),
         )
         cfg.ball = BallTrackerConfig(
             tracking_model_path=get("BALL_TRACKER_MODEL"),

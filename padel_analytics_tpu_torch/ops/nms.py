@@ -6,17 +6,20 @@ IoU threshold, the class-offset trick for several classes, and `max_det`
 slots a frame plus a validity mask. The results equal the JAX package's
 slot by slot.
 
-The work is split where it is cheapest:
+The work is split where it is cheapest, into two halves that the fused
+pipeline runs apart (the download between them happens at its drain):
 
-- on the scores' device: the confidence mask, the top-k (a stable
-  descending sort, so that equal scores keep the lower anchor index first,
-  as ``jax.lax.top_k`` does; the scores of a bf16 model tie often), the
-  gather and the (B, k, k) matrix of IoU > threshold;
-- on the host: the greedy pass over that matrix, k dependent steps that
-  would be several hundred tiny launches on a GPU. One download brings the
-  matrix (128 KB at B = 8, k = 128) and the top-k candidates; the pass
-  stops at the batch's largest count of valid candidates (they come first
-  in each row), then the kept candidates are compacted into the slots.
+- `nms_candidates`, on the scores' device, with no host sync: the
+  confidence mask, the top-k (a stable descending sort, so that equal
+  scores keep the lower anchor index first, as ``jax.lax.top_k`` does; the
+  scores of a bf16 model tie often), the gather and the (B, k, k) matrix
+  of IoU > threshold;
+- `nms_select`, on the host: the greedy pass over that matrix, k dependent
+  steps that would be several hundred tiny launches on a GPU. One download
+  brings the matrix (128 KB at B = 8, k = 128) and the top-k candidates;
+  the pass stops at the batch's largest count of valid candidates (they
+  come first in each row), then the kept candidates are compacted into
+  the slots.
 
 `batched_nms` therefore returns host (CPU) tensors, which is where its
 consumers (ByteTrack, the JSON cache) run.
@@ -24,8 +27,12 @@ consumers (ByteTrack, the JSON cache) run.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+from .packing import pack_rows, unpack_rows
 
 #: Class offset of the multi-class trick: boxes of different classes never overlap.
 CLASS_OFFSET = 7680.0
@@ -104,18 +111,28 @@ def greedy_keep(over: np.ndarray, n_valid: np.ndarray) -> np.ndarray:
     return keep
 
 
-def batched_nms(
+class NMSCandidates(NamedTuple):
+    """The device half's result, score-descending per frame: the top-k
+    candidates and their (B, k, k) IoU > threshold matrix."""
+
+    boxes: torch.Tensor  # (B, k, 4) xyxy
+    scores: torch.Tensor  # (B, k); -inf where no candidate
+    classes: torch.Tensor  # (B, k)
+    index: torch.Tensor  # (B, k) int32 anchor index
+    over: torch.Tensor  # (B, k, k) bool
+
+
+def nms_candidates(
     boxes: torch.Tensor,  # (B, A, 4) xyxy
     scores: torch.Tensor,  # (B, A)
     classes: torch.Tensor | None = None,  # (B, A) int
     conf_thres: float = 0.25,
     iou_thres: float = 0.7,
-    max_det: int = 300,
     top_k: int = 256,
-):
-    """Batched NMS. Returns host tensors (boxes (B, max_det, 4), scores
-    (B, max_det), classes (B, max_det), index (B, max_det) into the anchor
-    axis (-1 in empty slots), valid (B, max_det))."""
+) -> NMSCandidates:
+    """Device half of the NMS, with no host sync: the confidence mask, the
+    stable descending top-k, the gather and the IoU > threshold matrix (the
+    class offset keeps boxes of different classes apart)."""
     b, a = scores.shape
     k = min(top_k, a)
     if classes is None:
@@ -127,26 +144,50 @@ def batched_nms(
     top_classes = torch.gather(classes, 1, order)
     shifted = top_boxes + (top_classes.to(boxes.dtype) * CLASS_OFFSET)[..., None]
     over = box_iou(shifted, shifted) > iou_thres
+    return NMSCandidates(top_boxes, top_scores, top_classes, order.to(torch.int32), over)
 
-    # One download; everything after it runs on the host.
-    top_boxes, top_scores, top_classes, order, over = (
-        t.cpu() for t in (top_boxes, top_scores, top_classes, order, over))
+
+def nms_select(cands: NMSCandidates, max_det: int, payload: torch.Tensor | None = None):
+    """Host half of the NMS on host tensors: the greedy pass, then the kept
+    candidates (already score-descending) compacted into max_det slots.
+    Returns (boxes (B, max_det, 4), scores (B, max_det), classes, index
+    (B, max_det) into the anchor axis (-1 in empty slots), valid (B,
+    max_det)), and `payload` (B, k, ...) compacted the same way (zeros in
+    empty slots) when given."""
+    top_boxes, top_scores, top_classes, order, over = cands
+    b, k = top_scores.shape
     valid = torch.isfinite(top_scores)
     keep = torch.from_numpy(greedy_keep(over.numpy(), valid.sum(-1).numpy()))
-
-    # Compact the kept candidates (already score-descending) into max_det
-    # slots; slot max_det is the overflow, dropped.
+    # Slot max_det is the overflow, dropped.
     slot = torch.where(keep, torch.cumsum(keep.int(), dim=-1) - 1, max_det).clamp(max=max_det)
     rows = torch.arange(b)[:, None].expand(b, k)
-    out_boxes = torch.zeros((b, max_det + 1, 4), dtype=top_boxes.dtype)
-    out_scores = torch.zeros((b, max_det + 1), dtype=top_scores.dtype)
-    out_classes = torch.zeros((b, max_det + 1), dtype=top_classes.dtype)
-    out_index = torch.full((b, max_det + 1), -1, dtype=torch.int32)
-    out_boxes[rows[keep], slot[keep]] = top_boxes[keep]
-    out_scores[rows[keep], slot[keep]] = top_scores[keep]
-    out_classes[rows[keep], slot[keep]] = top_classes[keep]
-    out_index[rows[keep], slot[keep]] = order[keep].int()
+    rows, slot = rows[keep], slot[keep]
+
+    def compact(t: torch.Tensor, fill=0) -> torch.Tensor:
+        out = torch.full((b, max_det + 1) + tuple(t.shape[2:]), fill, dtype=t.dtype)
+        out[rows, slot] = t[keep]
+        return out[:, :max_det]
+
     n_kept = torch.clamp(keep.sum(-1), max=max_det)
     out_valid = torch.arange(max_det)[None] < n_kept[:, None]
-    return (out_boxes[:, :max_det], out_scores[:, :max_det], out_classes[:, :max_det],
-            out_index[:, :max_det], out_valid)
+    out = (compact(top_boxes), compact(top_scores), compact(top_classes),
+           compact(order, -1), out_valid)
+    return out if payload is None else out + (compact(payload),)
+
+
+def batched_nms(
+    boxes: torch.Tensor,  # (B, A, 4) xyxy
+    scores: torch.Tensor,  # (B, A)
+    classes: torch.Tensor | None = None,  # (B, A) int
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.7,
+    max_det: int = 300,
+    top_k: int = 256,
+):
+    """Batched NMS: `nms_candidates` on the scores' device, one download,
+    `nms_select` on the host. Returns host tensors (boxes (B, max_det, 4),
+    scores (B, max_det), classes (B, max_det), index (B, max_det) into the
+    anchor axis (-1 in empty slots), valid (B, max_det))."""
+    cands = nms_candidates(boxes, scores, classes, conf_thres, iou_thres, top_k)
+    buf, layout = pack_rows(cands)
+    return nms_select(NMSCandidates(*unpack_rows(buf.cpu(), layout)), max_det)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -127,18 +127,34 @@ class ResizePlan:
     r_h: np.ndarray  # (dst_h, src_h)
     r_w: np.ndarray  # (dst_w, src_w)
     quantize_intermediate: bool = False
+    # The fp32 matrices on each device they were used on: uploaded once per
+    # device, not per call (a pageable upload blocks the host; ~15 MB for a
+    # 1080p -> 1280x1280 squash).
+    _on_device: dict = field(default_factory=dict, init=False, repr=False, compare=False,
+                             hash=False)
 
     @property
     def dst_hw(self) -> tuple[int, int]:
         return (self.r_h.shape[0], self.r_w.shape[0])
+
+    def device_matrices(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(r_h, r_w) as fp32 tensors on `device`, uploaded on first use."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mats = self._on_device.get(device)
+        if mats is None:
+            mats = tuple(torch.as_tensor(m, dtype=torch.float32, device=device)
+                         for m in (self.r_h, self.r_w))
+            self._on_device[device] = mats
+        return mats
 
     def apply(self, images: torch.Tensor) -> torch.Tensor:
         """Resize a (..., H, W, C) stack to (..., H', W', C) fp32: the
         horizontal pass, Pillow's uint8 clip of the intermediate where the
         plan quantises, then the vertical pass."""
         x = images.float()
-        r_w = torch.as_tensor(self.r_w, dtype=torch.float32, device=x.device)
-        r_h = torch.as_tensor(self.r_h, dtype=torch.float32, device=x.device)
+        r_h, r_w = self.device_matrices(x.device)
         with no_tf32():
             x = torch.einsum("...hwc,pw->...hpc", x, r_w)
             if self.quantize_intermediate:

@@ -1,9 +1,14 @@
-"""Trackers and the runner (the ball, players and player-pose paths so far)."""
+"""Trackers, the fused pipeline and the runner (the ball, players, player-pose
+and fixed-court paths so far)."""
 
 from .ball import BallTracker
 from .base import NoPredictFrames, NoPredictSample, Tracker, TrackingResults
+from .court_keypoints import KeypointsTracker
+from .fused import FusedPipeline
 from .objects import (
     Ball,
+    Keypoint,
+    Keypoints,
     Player,
     PlayerKeypoint,
     PlayerKeypoints,
@@ -19,6 +24,10 @@ __all__ = [
     "Ball",
     "BallTracker",
     "FrameStore",
+    "FusedPipeline",
+    "Keypoint",
+    "Keypoints",
+    "KeypointsTracker",
     "NoPredictFrames",
     "NoPredictSample",
     "Player",

@@ -1,0 +1,704 @@
+"""Fused multi-tracker pipeline: one upload per chunk of frames, three
+sub-steps on three CUDA streams sharing it.
+
+Counterpart of ``padel_analytics_tpu/trackers/fused.py`` (`FusedPipeline.run`
+and `measure_device_split`). The per-tracker runner pays one decode, one
+upload and one serial pass per tracker; here each chunk is decoded once,
+packed on the host into a reused pinned staging slot (RGB, or I420 at half
+the bytes), copied to the device once, and consumed by:
+
+  frames (B, H, W, 3) uint8 on the device   [one H2D copy, copy stream]
+    ├── det  (stream): letterbox -> YOLOv8 -> NMS candidates  ┐ each ends in
+    ├── pose (stream): squash -> YOLOv8-pose -> NMS candidates│ ONE packed
+    └── ball (stream): resize + carried 7-frame context ->    │ buffer, one
+          TrackNet windows -> rolling ensemble -> decode (K2) ┘ D2H copy
+
+Each sub-step reuses its tracker's own device half (`device_step`) and its
+results are finished on the host by the tracker's host half (`host_step`:
+the greedy NMS pass, unletterbox, clip, polygon gate, keypoint rescale),
+then ByteTrack, at the drain. Up to two chunks stay in flight: the drain of
+chunk k-2 waits on its events while chunks k-1 and k run on the device, and
+the next chunk's decode and pack run in a prefetch worker meanwhile. No
+step between the upload and the drain synchronises the host: the ensemble
+coefficients and the channel-quirk flags live on the device for the whole
+run and are sliced by the chunk's first frame.
+
+Ball alignment: after chunk k (frames [kB, kB+B)), the windows completed
+are those ending inside the chunk, and the frames emitted are
+f = kB-(L-1)+j; the clip is zero-extended by L-1 frames so the tail flushes
+through the same uniform loop (windows touching padding carry coefficient
+0). The caches equal the per-tracker paths' byte for byte
+(tests/test_torch_fused.py).
+
+Not ported yet, each raising NotImplementedError that names its ROADMAP.md
+item: the 'derived' ingest, ball_stride=seq_len, association='device', a
+model-based court, `run_staged` and `run_mesh`.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.color import i420_to_rgb, rgb_to_i420
+from ..ops.ensemble import overlap_ensemble_coefficients
+from ..ops.packing import Layout, pack_rows, unpack_rows
+from ..ops.resize import letterbox_plan, resize_plan
+from ._ballwindow import frame_channels, make_frame_preprocess, median_model_resolution
+from ._streams import DeviceTimer, Lanes, StagingRing, to_host
+from .ball import BallTracker
+from .court_keypoints import KeypointsTracker
+from .objects import Ball, Player, PlayerKeypoint, PlayerKeypoints, Players, PlayersKeypoints
+from .player_keypoints import PlayerKeypointsTracker
+from .players import PlayerTracker
+
+#: Threads that pack a chunk's frames into its staging slot (numpy releases
+#: the interpreter lock in the copies and the I420 arithmetic).
+PACK_THREADS = 4
+#: Staging slots: the chunk being uploaded, the one being packed, a spare.
+STAGING_SLOTS = 3
+#: Chunks in flight on the device before the oldest is drained.
+IN_FLIGHT = 2
+
+
+class _FrameWindow:
+    """Bounded streaming view over the decoded frame iterator: only the
+    frames between the last-dropped and the furthest-filled index are
+    resident, so arbitrarily long clips run in O(window) host memory."""
+
+    def __init__(self, initial, it):
+        self._win = collections.deque(initial)
+        self._base = 0
+        self._it = it
+        self._exhausted = False
+
+    def fill_to(self, hi: int) -> int:
+        """Ensure frames [base, hi) are resident; returns frames available."""
+        while not self._exhausted and self._base + len(self._win) < hi:
+            nxt = next(self._it, None)
+            if nxt is None:
+                self._exhausted = True
+                break
+            self._win.append(nxt)
+        return self._base + len(self._win)
+
+    def get(self, i: int):
+        return self._win[i - self._base]
+
+    def drop_below(self, i: int) -> None:
+        while self._base < i and self._win:
+            self._win.popleft()
+            self._base += 1
+
+    def first(self):
+        return self._win[0]
+
+    def __len__(self):
+        return len(self._win)
+
+
+class _ResultBuilder:
+    """Incremental host-side result accumulation at drain time.
+
+    The drain does only numpy work between dispatches: host ByteTrack
+    (inherently sequential; running it here overlaps it with the chunks in
+    flight) and array appends. Result objects are built at the emit points
+    only: `maybe_emit` for a streaming consumer, `finish` otherwise."""
+
+    def __init__(self, pipeline: "FusedPipeline", n: int, src_hw, stream=None):
+        self.pipeline = pipeline
+        self.n = n
+        ball = pipeline.ball
+        self.w_scaler = src_hw[1] / ball.WIDTH
+        self.h_scaler = src_hw[0] / ball.HEIGHT
+        self._det_chunks: list = []  # (boxes, scores, keep_mask, ids)
+        self._pose_chunks: list = []  # (kpts, valid)
+        self._det_ready = 0
+        self._pose_ready = 0
+        self.players_objs: list[Players] = []
+        self.pose_objs: list[PlayersKeypoints] = []
+        self.ball_x: list[int] = []
+        self.ball_y: list[int] = []
+        self.ball_v: list[int] = []
+        self.stream = stream
+        self._emitted = 0
+
+    def add_det(self, boxes, scores, valid) -> None:
+        """(F, D, 4/-/-) host arrays for F consecutive frames; ByteTrack
+        assigns the IDs here, in frame order."""
+        byte_track = self.pipeline.players.byte_track
+        keep_mask = np.zeros(valid.shape, bool)
+        ids = np.zeros(valid.shape, np.int64)
+        for f in range(boxes.shape[0]):
+            keep = valid[f]
+            ids_f, kept = byte_track.update_with_detections(boxes[f][keep], scores[f][keep])
+            sel = np.flatnonzero(keep)[kept]
+            keep_mask[f, sel] = True
+            ids[f, sel] = ids_f
+        self._det_chunks.append((boxes, scores, keep_mask, ids))
+        self._det_ready += boxes.shape[0]
+
+    def add_pose(self, kpts, valid) -> None:
+        self._pose_chunks.append((kpts, valid))
+        self._pose_ready += kpts.shape[0]
+
+    def add_ball(self, x: int, y: int, v: int) -> None:
+        self.ball_x.append(x)
+        self.ball_y.append(y)
+        self.ball_v.append(v)
+
+    def _materialize(self) -> None:
+        for boxes, scores, keep_mask, ids in self._det_chunks:
+            for f in range(boxes.shape[0]):
+                self.players_objs.append(Players([
+                    Player(xyxy=boxes[f, i], id=int(ids[f, i]), class_id=0,
+                           confidence=float(scores[f, i]))
+                    for i in np.flatnonzero(keep_mask[f])
+                ]))
+        self._det_chunks.clear()
+        for kpts, valid in self._pose_chunks:
+            for f in range(kpts.shape[0]):
+                self.pose_objs.append(PlayersKeypoints([
+                    PlayerKeypoints([
+                        PlayerKeypoint(id=i, name=PlayerKeypoints.KEYPOINTS_NAMES[i],
+                                       xy=(float(kpts[f, d, i, 0]), float(kpts[f, d, i, 1])))
+                        for i in range(kpts.shape[2])
+                    ])
+                    for d in range(kpts.shape[1]) if valid[f, d]
+                ]))
+        self._pose_chunks.clear()
+
+    def _ball_obj(self, i: int) -> Ball:
+        # Int truncation at both scale steps, as the per-tracker path.
+        x = int(int(self.ball_x[i]) * self.w_scaler)
+        y = int(int(self.ball_y[i]) * self.h_scaler)
+        return Ball(frame=i, xy=(float(x), float(y)), visibility=int(self.ball_v[i]))
+
+    def _court(self, count: int):
+        court = self.pipeline.court
+        return None if court is None else [court.fixed_keypoints_detection] * count
+
+    def maybe_emit(self) -> None:
+        """Push newly finalized frames to the stream callback."""
+        if self.stream is None:
+            return
+        n_ready = min(self._det_ready, self._pose_ready, len(self.ball_x))
+        if n_ready <= self._emitted:
+            return
+        self._materialize()
+        lo, hi = self._emitted, n_ready
+        self.stream(self.players_objs[lo:hi], self.pose_objs[lo:hi],
+                    [self._ball_obj(i) for i in range(lo, hi)], self._court(hi - lo))
+        self._emitted = n_ready
+
+    def finish(self) -> dict[str, list]:
+        self._materialize()
+        if len(self.ball_x) != self.n:
+            raise RuntimeError(f"emitted {len(self.ball_x)} ball rows for {self.n} frames")
+        results = {
+            "players": self.players_objs,
+            "players_keypoints": self.pose_objs,
+            "ball": [self._ball_obj(i) for i in range(self.n)],
+        }
+        court = self._court(self.n)
+        if court is not None:
+            results["keypoints"] = court
+        return results
+
+
+class _Download(NamedTuple):
+    """A sub-step's packed result on its way to the host: the pinned host
+    buffer (filled once `done` has completed), its layout, and the device
+    buffer, held until the drain."""
+
+    host: torch.Tensor
+    layout: Layout
+    done: Optional[torch.cuda.Event]
+    device_buf: torch.Tensor
+
+    def take(self, n: int) -> tuple[torch.Tensor, Layout]:
+        """The first n rows of the host buffer, once the copy is done, and
+        the layout."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host[:n], self.layout
+
+
+class _Chunk(NamedTuple):
+    lo: int  # first frame
+    n_real: int  # frames of the clip in it
+    det: Optional[_Download]
+    pose: Optional[_Download]
+    ball: _Download
+
+
+class _BallState(NamedTuple):
+    """Device-resident ball-branch state of one run."""
+
+    median: torch.Tensor  # (H, W, 3) model-resolution median, 'concat'
+    median_src: Optional[torch.Tensor]  # (Hs, Ws, 3) fp32, subtract modes
+    coef: torch.Tensor  # (n_ext_pad, L) ensemble coefficients
+    swap: torch.Tensor  # (n_ext_pad,) channel-quirk flags
+    frame_carry: torch.Tensor  # (L-1, H, W, C_f)
+    heat_carry: torch.Tensor  # (L-1, L, H, W)
+
+
+class FusedPipeline:
+    """Runs the players, pose and ball trackers (and a fixed court) over one
+    upload per chunk of frames."""
+
+    def __init__(
+        self,
+        players: PlayerTracker,
+        pose: PlayerKeypointsTracker,
+        ball: BallTracker,
+        court: Optional[KeypointsTracker] = None,
+        chunk: int = 16,
+        ingest: str = "rgb",
+        association: str = "auto",
+        ball_stride: int = 1,
+    ):
+        self.check_options(ingest, association, ball_stride)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        devices = {torch.device(t.device) for t in (players, pose, ball)}
+        if len(devices) != 1:
+            raise ValueError(f"the trackers lie on different devices: {sorted(map(str, devices))}")
+        if court is not None and court.fixed_keypoints_detection is None:
+            raise NotImplementedError(
+                "a model-based court is not ported yet (ROADMAP.md Queue 1 item 9)"
+            )
+        self.players = players
+        self.pose = pose
+        self.ball = ball
+        self.court = court
+        self.court_mode = None if court is None else "fixed"
+        self.chunk = chunk
+        # 'i420': frames cross the host->device link as I420 planes (1.5
+        # bytes a pixel against RGB's 3), rebuilt on the device bit-exactly
+        # to cv2's I420->RGB; the only deviation from 'rgb' is the chroma
+        # subsampling round trip.
+        self.ingest = ingest
+        self._ingest_pref = ingest
+        self.device = devices.pop()
+        self.lanes = Lanes(self.device)
+        self._step_cache: dict = {}
+        self._rings: dict = {}
+
+    @staticmethod
+    def check_options(ingest: str, association: str = "auto", ball_stride: int = 1) -> None:
+        """Refuse unknown options (ValueError) and those not ported yet
+        (NotImplementedError, naming their ROADMAP.md item). Of association
+        and ball_stride only one behaviour is ported, so neither is kept:
+        'auto' and 'host' both mean host ByteTrack at the drain (exact
+        parity), and stride 1 is the reference's rolling ensemble."""
+        if ingest not in ("rgb", "i420", "derived"):
+            raise ValueError(f"unknown ingest {ingest!r}")
+        if ingest == "derived":
+            raise NotImplementedError(
+                "the 'derived' ingest is not ported yet (ROADMAP.md Queue 1 item 4b: it needs "
+                "a host INTER_AREA resize without OpenCV)"
+            )
+        if association not in ("host", "device", "auto"):
+            raise ValueError(f"unknown association {association!r}")
+        if association == "device":
+            raise NotImplementedError(
+                "the device association scan is not ported yet (ROADMAP.md Queue 1 item 8)"
+            )
+        if ball_stride != 1:
+            raise NotImplementedError(
+                f"ball_stride={ball_stride}: only the stride-1 rolling ensemble is ported; "
+                "ball_stride=seq_len (nonoverlap) is ROADMAP.md Queue 1 item 7"
+            )
+
+    @property
+    def _ball_off(self) -> int:
+        """Frames of clip zero-extension and of ball-emit lag: seq_len - 1
+        under the stride-1 rolling ensemble."""
+        return self.ball.tracknet_seq_len - 1
+
+    def _wire(self, src_hw: tuple[int, int]):
+        """((wire_h, wire_w), sx, sy): the on-the-wire frame resolution and
+        the wire->source coordinate scale. The identity: the 'derived'
+        ingest, which downscales on the host, is not ported."""
+        return tuple(src_hw), 1.0, 1.0
+
+    def _ingest_decode(self, src_hw: tuple[int, int]):
+        """Raw uploaded chunk -> (B, H, W, 3) uint8 RGB frames on the device."""
+        if self.ingest == "i420":
+            h = self._wire(src_hw)[0][0]
+            return lambda buf: i420_to_rgb(buf, h, dtype=torch.uint8)
+        return lambda frames: frames
+
+    def _check_ingest(self, src_hw: tuple[int, int]) -> None:
+        """Pick the run's wire format from the configured preference: I420
+        needs even dimensions. Recomputed per run (not a one-way latch), so
+        one odd-dimension clip does not downgrade every later run of a
+        cached pipeline to twice the ingest bytes."""
+        self.ingest = self._ingest_pref
+        if self.ingest == "i420" and (src_hw[0] % 2 or src_hw[1] % 2):
+            print(f"fused: {tuple(src_hw)} has odd dimensions; falling back to rgb ingest")
+            self.ingest = "rgb"
+
+    def wire_bytes_per_frame(self, src_hw: tuple[int, int]) -> int:
+        """Bytes one frame costs on the host->device link in the current
+        wire format."""
+        (wh, ww), _, _ = self._wire(src_hw)
+        return wh * ww * 3 // 2 if self.ingest == "i420" else wh * ww * 3
+
+    def _wire_shape(self, src_hw: tuple[int, int]) -> tuple[int, ...]:
+        """Shape of one chunk on the wire."""
+        (wh, ww), _, _ = self._wire(src_hw)
+        if self.ingest == "i420":
+            return (self.chunk, wh * 3 // 2, ww)
+        return (self.chunk, wh, ww, 3)
+
+    def _ring(self, src_hw: tuple[int, int]) -> StagingRing:
+        """The staging ring for this wire shape, kept across runs (pinning
+        ~100 MB a slot at 1080p is slow)."""
+        shape = self._wire_shape(src_hw)
+        if shape not in self._rings:
+            self._rings[shape] = StagingRing(shape, STAGING_SLOTS, self.device)
+        return self._rings[shape]
+
+    def _pack_chunk(self, chunk_frames: list[np.ndarray], out: np.ndarray,
+                    pool: ThreadPoolExecutor) -> np.ndarray:
+        """Host-side chunk packing in the ingest's wire format, frame by
+        frame into `out` (a staging slot), on `pool`'s threads."""
+        if self.ingest == "i420":
+            def pack(i):
+                rgb_to_i420(chunk_frames[i], out=out[i])
+        else:
+            def pack(i):
+                np.copyto(out[i], chunk_frames[i])
+        list(pool.map(pack, range(len(chunk_frames))))
+        return out
+
+    # ------------------------------------------------------------------
+    # The three sub-steps. Each takes the chunk's (B, H, W, 3) uint8 RGB
+    # frames on the device and returns (packed buffer, layout) with no host
+    # sync; the ball step also takes and returns its carries.
+
+    def _build_det_step(self, src_hw: tuple[int, int]):
+        return self.players.device_step
+
+    def _build_pose_step(self, src_hw: tuple[int, int]):
+        return self.pose.device_step
+
+    def _build_ball_step(self, src_hw: tuple[int, int]):
+        b = self.chunk
+        ball = self.ball
+        pre = make_frame_preprocess(self._wire(src_hw)[0], (ball.HEIGHT, ball.WIDTH),
+                                    ball.bg_mode)
+
+        def ball_step(frames, state: _BallState, lo: int, swap: bool):
+            # The chunk's rows of the run's coefficient table (row lo + j
+            # holds the coefficients of frame lo + j - (L-1)) and, where any
+            # frame of the chunk is flagged, of the channel-quirk flags. The
+            # swap applies to the ball branch only, before the difference /
+            # resize; det and pose keep RGB.
+            coef = state.coef[lo: lo + b]
+            flags = state.swap[lo: lo + b] if swap else None
+            resized = pre(frames, median_src=state.median_src, swap=flags)
+            cx, cy, vis, frame_carry, heat_carry = ball._window_step(
+                resized, state.median, state.frame_carry, state.heat_carry, coef)
+            packed = pack_rows([torch.stack([cx, cy, vis], dim=-1)])
+            return packed, state._replace(frame_carry=frame_carry, heat_carry=heat_carry)
+
+        return ball_step
+
+    def _get_steps(self, src_hw: tuple[int, int]):
+        """(decode, det, pose, ball) steps, cached per (resolution, chunk,
+        bg_mode, ingest). Uploads every resize plan's matrices to the device
+        here, on the current stream, so no step uploads any."""
+        key = (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest, self.court_mode)
+        if key not in self._step_cache:
+            self._step_cache[key] = (
+                self._ingest_decode(src_hw),
+                self._build_det_step(src_hw),
+                self._build_pose_step(src_hw),
+                self._build_ball_step(src_hw),
+            )
+        wire = self._wire(src_hw)[0]
+        size = self.pose.train_image_size
+        for plan in (letterbox_plan(wire, self.players.IMGSZ).plan,
+                     resize_plan(wire, (size, size), "pil_bicubic"),
+                     resize_plan(wire, (self.ball.HEIGHT, self.ball.WIDTH), "pil_bicubic")):
+            plan.device_matrices(self.device)
+        return self._step_cache[key]
+
+    def _ball_device_setup(self, n: int, median_resized, median_src, quirk_flags) -> _BallState:
+        """Device-resident ball-branch state for an n-frame clip. The tables
+        are padded so chunk k's rows are table[lo : lo + b] (out-of-range
+        frames are zero rows)."""
+        b = self.chunk
+        ball = self.ball
+        seq_len = ball.tracknet_seq_len
+        n_ext_pad = (-(-(n + seq_len - 1) // b)) * b + b
+        coef = np.zeros((n_ext_pad, seq_len), np.float32)
+        coef[seq_len - 1: seq_len - 1 + n] = overlap_ensemble_coefficients(n, seq_len,
+                                                                            ball.EVAL_MODE)
+        swap = np.zeros(n_ext_pad, np.float32)
+        swap[:n] = quirk_flags
+        dev = self.device
+        return _BallState(
+            median=torch.from_numpy(median_resized).to(dev),
+            median_src=None if median_src is None else torch.from_numpy(median_src).to(dev),
+            coef=torch.from_numpy(coef).to(dev),
+            swap=torch.from_numpy(swap).to(dev),
+            frame_carry=torch.zeros((seq_len - 1, ball.HEIGHT, ball.WIDTH,
+                                     frame_channels(ball.bg_mode)), dtype=torch.float32,
+                                    device=dev),
+            heat_carry=torch.zeros((seq_len - 1, seq_len, ball.HEIGHT, ball.WIDTH),
+                                   dtype=torch.float32, device=dev),
+        )
+
+    def _setup(self, frame_iter, total_frames):
+        """The run's set-up, before any chunk: the median, the steps (and
+        their plans' matrices), the ball state on the ball lane, and every
+        lane ordered after it."""
+        median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
+            frame_iter, total_frames)
+        steps = self._get_steps(src_hw)
+        lanes = self.lanes
+        lanes.after_current()
+        with lanes.on(lanes.ball):  # the state is allocated and used on the ball lane
+            state = self._ball_device_setup(n, median_resized, median_src, quirk_flags)
+        return fw, quirk_flags, n, src_hw, steps, state
+
+    # ------------------------------------------------------------------
+
+    def run(self, frame_iter: Iterable[np.ndarray], total_frames: int,
+            stream=None) -> dict[str, list]:
+        """Consume RGB uint8 frames; returns per-tracker prediction lists
+        keyed 'players', 'players_keypoints', 'ball' and, with a court,
+        'keypoints'.
+
+        stream: optional callback(players_new, pose_new, ball_new,
+        court_new) called in frame order as results finalize, so the caller
+        can consume them while inference runs."""
+        with torch.inference_mode():
+            fw, quirk_flags, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
+            b = self.chunk
+            ring = self._ring(src_hw)
+            # Zero-extend the clip by seq_len-1 frames: every output frame,
+            # the tail included, is emitted by the uniform chunk loop.
+            zero_frame = np.zeros_like(fw.first())
+            n_ext = n + self._ball_off
+            num_chunks = -(-n_ext // b)
+            builder = _ResultBuilder(self, n, src_hw, stream)
+
+            def prepare(k: int) -> int:
+                """Host side of chunk k: decode fill, then pack into its
+                staging slot once the slot's last upload is done."""
+                lo, hi = k * b, min((k + 1) * b, n_ext)
+                avail = min(fw.fill_to(min(hi, n)), n)
+                frames = [fw.get(i) if i < avail else zero_frame for i in range(lo, hi)]
+                frames += [zero_frame] * (b - len(frames))
+                self._pack_chunk(frames, ring.acquire(k), pack_pool)
+                fw.drop_below(min(hi, n))  # frames are kept until packed
+                return lo
+
+            # The next chunk's decode and pack (numpy, which releases the
+            # interpreter lock) run in a worker while this thread queues the
+            # current chunk's device work and drains the oldest chunk.
+            with ThreadPoolExecutor(PACK_THREADS) as pack_pool, \
+                    ThreadPoolExecutor(1) as prefetch:
+                self._run_chunk_loop(num_chunks, prefetch, prepare, steps, ring, n,
+                                     quirk_flags, state, builder, src_hw)
+            return builder.finish()
+
+    def _run_chunk_loop(self, num_chunks, prefetch, prepare, steps, ring, n, quirk_flags,
+                        state, builder, src_hw) -> None:
+        """Dispatch chunk after chunk, keeping up to IN_FLIGHT of them on the
+        device; each chunk's host side is prepared one ahead in `prefetch`."""
+        next_prep = prefetch.submit(prepare, 0)
+        pending: collections.deque[_Chunk] = collections.deque()
+        for k in range(num_chunks):
+            lo = next_prep.result()
+            if k + 1 < num_chunks:
+                next_prep = prefetch.submit(prepare, k + 1)
+            chunk, state = self._dispatch(steps, ring, k, lo, n, quirk_flags, state)
+            pending.append(chunk)
+            if len(pending) > IN_FLIGHT:
+                self._drain(pending.popleft(), builder, n, src_hw)
+        while pending:
+            self._drain(pending.popleft(), builder, n, src_hw)
+
+    def _dispatch(self, steps, ring: StagingRing, k: int, lo: int, n: int, quirk_flags,
+                  state: _BallState):
+        """Queue chunk k's device work: the upload and decode on the copy
+        lane, each sub-step on its own lane after them, each ending in one
+        D2H copy of its packed buffer. Returns (the chunk's record, the new
+        ball state)."""
+        decode, det_step, pose_step, ball_step = steps
+        lanes, b = self.lanes, self.chunk
+        with lanes.on(lanes.copy):
+            frames = decode(ring.upload(k))
+            ready = lanes.record(lanes.copy)
+        n_real = max(0, min(lo + b, n) - lo)
+
+        def launch(lane, step) -> _Download:
+            with lanes.on(lane):
+                lanes.wait(lane, ready)
+                if lane is not None:
+                    # frames was allocated on the copy lane: keep the
+                    # allocator from reusing it while this lane reads it.
+                    frames.record_stream(lane)
+                buf, layout = step(frames)
+                return _Download(to_host(buf), layout, lanes.record(lane), buf)
+
+        def ball(f):
+            nonlocal state
+            packed, state = ball_step(f, state, lo, swap)
+            return packed
+
+        swap = bool(np.any(quirk_flags[lo: lo + b]))
+        # A chunk of padding only (the ball's tail) runs the ball step alone.
+        det = launch(lanes.det, det_step) if n_real else None
+        pose = launch(lanes.pose, pose_step) if n_real else None
+        ball_download = launch(lanes.ball, ball)  # sets the new state
+        return _Chunk(lo, n_real, det, pose, ball_download), state
+
+    def _unpack_frames(self, builder: _ResultBuilder, det: _Download, pose: _Download,
+                       n_real: int, src_hw) -> None:
+        """The det and pose downloads of a chunk's n_real clip frames, once
+        done, through the trackers' host halves into the builder."""
+        builder.add_det(*self.players.host_step(*det.take(n_real), src_hw))
+        kpts, _, valid = self.pose.host_step(*pose.take(n_real), src_hw)
+        builder.add_pose(kpts, valid)
+
+    def _drain(self, chunk: _Chunk, builder: _ResultBuilder, n: int, src_hw) -> None:
+        """Wait for a chunk's downloads, then its host work: the trackers'
+        host halves, ByteTrack and the ball rows."""
+        if chunk.n_real:
+            self._unpack_frames(builder, chunk.det, chunk.pose, chunk.n_real, src_hw)
+        (packed,) = unpack_rows(*chunk.ball.take(self.chunk))
+        emit_lo = chunk.lo - self._ball_off
+        for j, (x, y, v) in enumerate(packed.tolist()):
+            if 0 <= emit_lo + j < n:
+                builder.add_ball(x, y, v)
+        builder.maybe_emit()
+
+    # ------------------------------------------------------------------
+
+    def measure_device_split(self, frame_iter: Iterable[np.ndarray], total_frames: int,
+                             n_chunks: int = 4) -> Optional[dict]:
+        """Device time of each fused sub-step over chunks already resident
+        on the device.
+
+        Packs `n_chunks` chunks on the host (timed on the host clock), uploads
+        and decodes each (device time: CUDA events around the copy and the
+        decode), then runs each sub-step alone over the resident chunks, one
+        phase after another on the current stream, each timed with CUDA
+        events after an untimed warm-up. Meant for a warm pipeline.
+
+        Returns {"pack_s", "upload_s", "det_s", "pose_s", "ball_s",
+        "frames", "device_ms_per_frame", "device_fps"} in seconds (the last
+        two over the three sub-steps), or None when the clip is shorter than
+        one chunk. On the CPU the times are host wall times."""
+        b = self.chunk
+        with torch.inference_mode():
+            fw, _, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
+            if n < b:
+                return None
+            self.lanes.current_after_all()  # the phases run on the current stream
+            decode, det_step, pose_step, ball_step = steps
+            n_chunks = min(n_chunks, n // b)
+            ring = self._ring(src_hw)
+            timer = DeviceTimer(self.device)
+            raw = {"pack_s": 0.0, "upload_s": 0.0}
+            resident = []
+            fw.fill_to(n_chunks * b)
+            with ThreadPoolExecutor(PACK_THREADS) as pool:
+                for k in range(n_chunks):
+                    slot = ring.acquire(k)
+                    t0 = time.perf_counter()
+                    self._pack_chunk([fw.get(i) for i in range(k * b, (k + 1) * b)], slot, pool)
+                    raw["pack_s"] += time.perf_counter() - t0
+                    fw.drop_below((k + 1) * b)
+                    timer.start()
+                    resident.append(decode(ring.upload(k)))
+                    raw["upload_s"] += timer.stop()
+
+            def ball_phase():
+                s = state
+                for k, frames in enumerate(resident):
+                    _, s = ball_step(frames, s, k * b, False)
+
+            phases = {
+                "det_s": lambda: [det_step(f) for f in resident],
+                "pose_s": lambda: [pose_step(f) for f in resident],
+                "ball_s": ball_phase,
+            }
+            for name, phase in phases.items():
+                phase()  # warm-up
+                timer.start()
+                phase()
+                raw[name] = timer.stop()
+        compute_s = raw["det_s"] + raw["pose_s"] + raw["ball_s"]
+        frames = n_chunks * b
+        return {**raw, "frames": frames, "device_ms_per_frame": compute_s / frames * 1e3,
+                "device_fps": frames / max(compute_s, 1e-9)}
+
+    # ------------------------------------------------------------------
+
+    def run_staged(self, *args, **kwargs):
+        raise NotImplementedError(
+            "run_staged is not ported (ROADMAP.md Queue 1 item 4c: CUDA graphs over the chunk "
+            "loop against a staged scan, decided from the profiled dispatch gaps)"
+        )
+
+    def run_mesh(self, *args, **kwargs):
+        raise NotImplementedError("run_mesh is not ported yet (ROADMAP.md Queue 1 item 11)")
+
+    # ------------------------------------------------------------------
+
+    def _gather_setup(self, frame_iter, total_frames):
+        """Median estimation over the head of the clip + the streaming frame
+        window. Frames stay RGB for det/pose; the reference's channel quirk
+        (the ball path sees the first median_max_sample_num frames
+        channel-swapped) becomes per-frame flags that the ball branch reads
+        on the device."""
+        ball = self.ball
+        subtract_mode = ball.bg_mode in ("subtract", "subtract_concat")
+        buffered: list[np.ndarray] = []
+        it = iter(frame_iter)
+        quirk_upto = 0
+        if ball.owns_median():
+            for frame in it:
+                buffered.append(frame)
+                if len(buffered) == ball.median_max_sample_num:
+                    break
+            # Recomputed when the clip changed (first-frame fingerprint); the
+            # quirk swap of the head frames applies on every run.
+            if buffered and ball.ensure_median_for_clip(buffered):
+                quirk_upto = len(buffered)
+        elif subtract_mode and ball.median is None:
+            raise ValueError(f"bg_mode={ball.bg_mode!r} needs a median")
+
+        fw = _FrameWindow(buffered, it)
+        seq_len = ball.tracknet_seq_len
+        if fw.fill_to(seq_len) < seq_len or not len(fw):
+            raise ValueError("clip shorter than seq_len")
+        n = total_frames  # trusted: the runner clamps it to the clip
+        src_hw = tuple(fw.first().shape[:2])
+        # Settle the run's wire format before anything derives from it.
+        self._check_ingest(src_hw)
+        quirk_flags = np.zeros(n, np.float32)
+        quirk_flags[: min(quirk_upto, n)] = 1.0
+        if ball.median is None:
+            median_resized = np.zeros((ball.HEIGHT, ball.WIDTH, 3), np.uint8)
+        else:
+            median_resized = median_model_resolution(ball.median, ball.HEIGHT, ball.WIDTH,
+                                                     ball.bg_mode, self.device)
+        # Float median at source resolution for the subtract modes'
+        # difference images on the device.
+        median_src = ball.median.astype(np.float32) if subtract_mode else None
+        return median_resized, median_src, fw, quirk_flags, n, src_hw
+

@@ -1,7 +1,7 @@
 """Tracked-object result types with the reference's JSON schemas.
 
 Counterpart of ``padel_analytics_tpu/trackers/objects.py`` (the types the
-ball, players and pose paths need so far). Each `serialize` gives the same
+ball, players, pose and court paths need so far). Each `serialize` gives the same
 dict, and so the same JSON cache bytes, as the JAX package and the
 reference. Drawing imports OpenCV where it draws.
 """
@@ -232,6 +232,67 @@ class Ball(TrackedObject):
         import cv2
 
         cv2.circle(frame, self.asint(), 6, _GREEN_RGB, -1)
+        return frame
+
+
+class Keypoint(TrackedObject):
+    """Court keypoint."""
+
+    def __init__(self, id: int, xy: tuple[float, float]):
+        self.id = id
+        self.xy = tuple(xy)
+
+    @classmethod
+    def from_json(cls, x: dict) -> "Keypoint":
+        return cls(**x)
+
+    def serialize(self) -> dict:
+        return {"id": self.id, "xy": self.xy}
+
+    def asint(self) -> tuple[int, int]:
+        return tuple(int(v) for v in self.xy)
+
+    def draw(self, frame: np.ndarray) -> np.ndarray:
+        import cv2
+
+        x, y = self.asint()
+        cv2.putText(frame, str(self.id + 1), (x + 5, y - 5), cv2.FONT_HERSHEY_SIMPLEX, 0.4,
+                    (255, 255, 255), 1)
+        cv2.circle(frame, (x, y), radius=6, color=_RED_RGB, thickness=-1)
+        return frame
+
+
+class Keypoints(TrackedObject):
+    """Per-frame court keypoints, kept in id order; `keypoints[i]` looks a
+    keypoint up BY ID, not by position."""
+
+    def __init__(self, keypoints: list[Keypoint]):
+        self.keypoints = sorted(keypoints, key=lambda k: k.id)
+        self.keypoints_by_id = {k.id: k for k in keypoints}
+
+    @classmethod
+    def from_json(cls, x: list[dict]) -> "Keypoints":
+        return cls([Keypoint.from_json(k) for k in x])
+
+    def serialize(self) -> list[dict]:
+        return [k.serialize() for k in self.keypoints]
+
+    def __len__(self) -> int:
+        return len(self.keypoints)
+
+    def __iter__(self) -> Iterator[Keypoint]:
+        return iter(self.keypoints)
+
+    def __getitem__(self, id: int) -> Keypoint:
+        return self.keypoints_by_id[id]
+
+    def xy_array(self) -> np.ndarray:
+        """(K, 2) float64 array in id order."""
+        return np.array([k.xy for k in self.keypoints], dtype=np.float64)
+
+    def draw(self, frame: np.ndarray, **kwargs) -> np.ndarray:
+        for keypoint in self.keypoints:
+            frame = keypoint.draw(frame)
         return frame
 
 

@@ -5,11 +5,13 @@ the reference's behaviour: a PIL-bicubic squash (not a letterbox) to
 train_image_size (640 or 1280), conf 0.25, iou 0.7, keypoints scaled back
 by the per-axis ratios, 13 keypoints named in KEYPOINTS_NAMES order.
 
-Per chunk of frames: one upload, the squash (the dense PIL-parity matmuls),
-/255, YOLOv8-pose (every stride-1 3x3 ConvBN through kernel K1) and the NMS
-candidates on the device; the greedy NMS pass on the host; the kept
-detections' keypoints gathered on the device by anchor index and brought
-back as one (B, max_det, 13, 3) tensor.
+Per chunk of frames: one upload, then `device_step` (the squash, dense
+PIL-parity matmuls, /255, YOLOv8-pose with every stride-1 3x3 ConvBN
+through kernel K1, the NMS candidates and their keypoints gathered by
+anchor index), one download, then `host_step` (the greedy NMS pass, whose
+compaction picks the kept candidates' keypoints, and the rescale to source
+pixels). The fused pipeline runs the same two halves on each side of its
+drain.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from ..config import PlayerKeypointsTrackerConfig
 from ..models.layers import lecun_normal_
 from ..models.yolov8 import YOLOv8
-from ..ops.nms import SaturationCounter, batched_nms, candidate_count
+from ..ops.nms import NMSCandidates, SaturationCounter, candidate_count, nms_candidates, nms_select
+from ..ops.packing import Layout, pack_rows, unpack_rows
 from ..ops.resize import resize_plan
 from ._engine import Engine
 from .base import Tracker
@@ -103,27 +106,40 @@ class PlayerKeypointsTracker(Tracker):
         out = self.engine.model((plan.apply(frames) / 255.0).to(self.compute_dtype))
         return out, out["scores"][..., 0]
 
-    def detect_sample(self, sample: np.ndarray):
-        """Pose for a stacked (B, H, W, 3) RGB uint8 chunk. Returns host
-        numpy (keypoints (B, D, 13, 3) in source pixels, scores (B, D),
-        valid (B, D))."""
-        h, w = sample.shape[1:3]
-        with torch.inference_mode():
-            out, scores = self.model_outputs(torch.from_numpy(sample).to(self.device))
-            n_cand = candidate_count(scores, self.CONF).cpu()
-            _, scores, _, index, valid = batched_nms(
-                out["boxes"], scores, conf_thres=self.CONF, iou_thres=self.IOU,
-                max_det=self.max_detections, top_k=self.nms_top_k,
-            )
-            # Keypoints of the kept detections (empty slots gather anchor 0).
-            gather = index.clamp(min=0).to(self.device, torch.int64)
-            kpts = torch.gather(out["kpts"], 1, gather[..., None, None].expand(
-                -1, -1, *out["kpts"].shape[2:])).cpu()
-            # Squashed model space back to source pixels.
-            kpts[..., 0] *= w / self.train_image_size
-            kpts[..., 1] *= h / self.train_image_size
+    def device_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, Layout]:
+        """The device half of a chunk, with no host sync: model outputs,
+        per-frame candidate count, the NMS candidates and the keypoints of
+        the top-k candidates (B, k, 13, 3), packed into one (B, nbytes)
+        buffer (`ops/packing.py`) for one download."""
+        out, scores = self.model_outputs(frames)
+        cands = nms_candidates(out["boxes"], scores, conf_thres=self.CONF, iou_thres=self.IOU,
+                               top_k=self.nms_top_k)
+        kpts = out["kpts"]
+        top_kpts = torch.gather(kpts, 1, cands.index.long()[..., None, None].expand(
+            -1, -1, *kpts.shape[2:]))
+        return pack_rows([candidate_count(scores, self.CONF), *cands, top_kpts])
+
+    def host_step(self, packed: torch.Tensor, layout: Layout, src_hw: tuple[int, int]):
+        """The host half on the downloaded rows of `device_step`'s buffer:
+        the greedy NMS pass, whose compaction also picks the kept
+        candidates' keypoints, then the squashed model space back to source
+        pixels. Returns numpy (keypoints (B, D, 13, 3), scores (B, D), valid
+        (B, D)); empty slots hold zeros."""
+        h, w = src_hw
+        n_cand, *cands, top_kpts = unpack_rows(packed, layout)
+        _, scores, _, _, valid, kpts = nms_select(NMSCandidates(*cands), self.max_detections,
+                                                  payload=top_kpts)
+        kpts[..., 0] *= w / self.train_image_size
+        kpts[..., 1] *= h / self.train_image_size
         self.nms_saturation.update(n_cand.numpy())
         return kpts.numpy(), scores.numpy(), valid.numpy()
+
+    def detect_sample(self, sample: np.ndarray):
+        """Pose for a stacked (B, H, W, 3) RGB uint8 chunk: one upload,
+        `device_step`, one download, `host_step`."""
+        with torch.inference_mode():
+            packed, layout = self.device_step(torch.from_numpy(sample).to(self.device))
+            return self.host_step(packed.cpu(), layout, sample.shape[1:3])
 
     def predict_sample(self, sample: np.ndarray, **kwargs) -> list[PlayersKeypoints]:
         kpts, _, valid = self.detect_sample(np.asarray(sample))

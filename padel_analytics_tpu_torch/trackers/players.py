@@ -5,11 +5,12 @@ reference's behaviour: conf 0.5, iou 0.7, imgsz 640 letterbox, person class
 only, the on-court polygon gate on each box's bottom-centre anchor, and
 ByteTrack IDs, built at video_info_post_init with the video's fps.
 
-Per chunk of frames: one upload, the letterbox (cv2-linear matmuls), /255,
-YOLOv8 (every stride-1 3x3 ConvBN through kernel K1), the person score and
-the NMS candidates on the device; the greedy NMS pass, the unletterbox, the
-clip to the frame and the polygon gate on the host (ops/nms.py says why),
-then ByteTrack frame by frame.
+Per chunk of frames: one upload, then `device_step` (the letterbox,
+cv2-linear matmuls, /255, YOLOv8 with every stride-1 3x3 ConvBN through
+kernel K1, the person score and the NMS candidates), one download, then
+`host_step` (the greedy NMS pass, the unletterbox, the clip to the frame
+and the polygon gate; ops/nms.py says why) and ByteTrack frame by frame.
+The fused pipeline runs the same two halves on each side of its drain.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from ..models.convert import load_torch_checkpoint, yolov8_state_dict_from_ultra
 from ..models.layers import lecun_normal_
 from ..models.yolov8 import YOLOv8
 from ..ops.association import ByteTrack
-from ..ops.nms import SaturationCounter, batched_nms, candidate_count
+from ..ops.nms import NMSCandidates, SaturationCounter, candidate_count, nms_candidates, nms_select
+from ..ops.packing import Layout, pack_rows, unpack_rows
 from ..ops.polygon import PolygonZone, bottom_centers, points_in_polygon
 from ..ops.resize import letterbox_plan
 from ._engine import Engine
@@ -134,28 +136,39 @@ class PlayerTracker(Tracker):
         out = self.engine.model(x.to(self.compute_dtype))
         return out, _person_scores(out["scores"])
 
-    def detect_sample(self, sample: np.ndarray):
-        """Detections for a stacked (B, H, W, 3) RGB uint8 chunk. Returns
-        host numpy (boxes (B, D, 4) in source pixels, scores (B, D), valid
-        (B, D))."""
-        h, w = sample.shape[1:3]
-        lb = letterbox_plan((h, w), self.IMGSZ)
-        with torch.inference_mode():
-            out, person = self.model_outputs(torch.from_numpy(sample).to(self.device))
-            n_cand = candidate_count(person, self.CONF).cpu()
-            boxes, scores, _, _, valid = batched_nms(
-                out["boxes"], person, conf_thres=self.CONF, iou_thres=self.IOU,
-                max_det=self.max_detections, top_k=self.nms_top_k,
-            )
-            boxes = lb.boxes_to_source(boxes)
-            # ultralytics scale_boxes clips to the source frame.
-            boxes = torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
-                                 boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)
-            if self.polygon_zone is not None:
-                polygon = torch.from_numpy(self.polygon_zone.polygon)
-                valid = valid & points_in_polygon(bottom_centers(boxes), polygon)
+    def device_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, Layout]:
+        """The device half of a chunk, with no host sync: model outputs,
+        per-frame candidate count and the NMS candidates, packed into one
+        (B, nbytes) buffer (`ops/packing.py`) for one download."""
+        out, person = self.model_outputs(frames)
+        cands = nms_candidates(out["boxes"], person, conf_thres=self.CONF, iou_thres=self.IOU,
+                               top_k=self.nms_top_k)
+        return pack_rows([candidate_count(person, self.CONF), *cands])
+
+    def host_step(self, packed: torch.Tensor, layout: Layout, src_hw: tuple[int, int]):
+        """The host half on the downloaded rows of `device_step`'s buffer:
+        the greedy NMS pass, the unletterbox, the clip to the frame and the
+        polygon gate. Returns numpy (boxes (B, D, 4) in source pixels,
+        scores (B, D), valid (B, D))."""
+        h, w = src_hw
+        n_cand, *cands = unpack_rows(packed, layout)
+        boxes, scores, _, _, valid = nms_select(NMSCandidates(*cands), self.max_detections)
+        boxes = letterbox_plan((h, w), self.IMGSZ).boxes_to_source(boxes)
+        # ultralytics scale_boxes clips to the source frame.
+        boxes = torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
+                             boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)
+        if self.polygon_zone is not None:
+            polygon = torch.from_numpy(self.polygon_zone.polygon)
+            valid = valid & points_in_polygon(bottom_centers(boxes), polygon)
         self.nms_saturation.update(n_cand.numpy())
         return boxes.numpy(), scores.numpy(), valid.numpy()
+
+    def detect_sample(self, sample: np.ndarray):
+        """Detections for a stacked (B, H, W, 3) RGB uint8 chunk: one upload,
+        `device_step`, one download, `host_step`."""
+        with torch.inference_mode():
+            packed, layout = self.device_step(torch.from_numpy(sample).to(self.device))
+            return self.host_step(packed.cpu(), layout, sample.shape[1:3])
 
     def predict_sample(self, sample: np.ndarray, **kwargs) -> list[Players]:
         boxes, scores, valid = self.detect_sample(np.asarray(sample))

@@ -1,17 +1,27 @@
 """Host-side video input.
 
 Counterpart of ``padel_analytics_tpu/utils/video.py`` (the decode side).
-OpenCV is imported only where a video is opened, so the rest of the port
-runs without it.
+OpenCV is imported only where a video file is opened, so the rest of the
+port runs without it. A `MemoryClip` (decoded frames in memory) stands in
+for a video path anywhere one is taken, for callers that decode elsewhere
+or run where OpenCV is absent.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+
+@dataclass(frozen=True)
+class MemoryClip:
+    """A clip already decoded: RGB uint8 (H, W, 3) frames and their rate."""
+
+    frames: Sequence[np.ndarray]
+    fps: float
 
 
 @dataclass(frozen=True)
@@ -28,7 +38,11 @@ class VideoInfo:
         return (self.width, self.height)
 
     @classmethod
-    def from_video_path(cls, video_path: str | Path) -> "VideoInfo":
+    def from_video_path(cls, video_path: str | Path | MemoryClip) -> "VideoInfo":
+        if isinstance(video_path, MemoryClip):
+            h, w = video_path.frames[0].shape[:2]
+            return cls(width=w, height=h, fps=float(video_path.fps),
+                       total_frames=len(video_path.frames))
         import cv2
 
         cap = cv2.VideoCapture(str(video_path))
@@ -45,12 +59,15 @@ class VideoInfo:
 
 
 def frame_generator(
-    video_path: str | Path,
+    video_path: str | Path | MemoryClip,
     start: int = 0,
     stride: int = 1,
     end: Optional[int] = None,
 ) -> Iterator[np.ndarray]:
     """Yield RGB uint8 frames (RGB at the decode boundary)."""
+    if isinstance(video_path, MemoryClip):
+        yield from video_path.frames[start:end:stride]
+        return
     import cv2
 
     cap = cv2.VideoCapture(str(video_path))

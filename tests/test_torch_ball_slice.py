@@ -137,7 +137,7 @@ def test_runner_refuses_unported_passes(tmp_path, rng):
     tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
     for kwargs in ({"render": True}, {"render": False, "collect_data": True},
-                   {"render": False, "fused": True}):
+                   {"render": False, "fused": True, "fused_ingest": "derived"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrackingRunner([tracker], clip, tmp_path / "o.mp4", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

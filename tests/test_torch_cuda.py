@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions, and
-YOLOv8m and the NMS on the card against their CPU results.
+"""Kernels K1 and K2 on the card against their plain PyTorch versions,
+YOLOv8m and the NMS on the card against their CPU results, and the fused
+pipeline on the card against the per-tracker paths (decisive fakes).
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -12,10 +13,12 @@ import pytest
 import torch
 
 from _k2_cases import SMALL, dense, small
+from _torch_fused_cases import N, caches, clip_frames, make_trackers, per_tracker
 from padel_analytics_tpu_torch import _build
 from padel_analytics_tpu_torch.models.layers import lecun_normal_
 from padel_analytics_tpu_torch.models.yolov8 import YOLOv8
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
+from padel_analytics_tpu_torch.trackers import FusedPipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -233,3 +236,28 @@ def test_build_reuses_library(dev):
         torch.zeros(8, device=dev),
     )
     assert _build.library("conv3x3_bn_act") is _build.library("conv3x3_bn_act")
+
+
+@pytest.mark.parametrize("chunk", [4, 8])
+def test_fused_on_card_equals_per_tracker(dev, chunk):
+    """The fused pipeline's three streams, pinned staging and in-flight
+    chunks on the card give the per-tracker paths' caches byte for byte
+    (decisive fakes: a race between streams would show as a difference);
+    K2 decodes each chunk's ensemble."""
+    frames = clip_frames(np.random.default_rng(21))
+    want = per_tracker(*make_trackers(device=dev)[:3], frames)
+    before = heatmap.launches
+    out = FusedPipeline(*make_trackers(device=dev), chunk=chunk).run(iter(frames), N)
+    assert heatmap.launches - before == -(-(N + 7) // chunk)
+    got = caches(out)
+    for key in want:
+        assert got[key] == want[key], key
+
+
+def test_fused_i420_on_card_equals_cpu(dev):
+    """The i420 ingest: numpy packing, pinned upload, device decode."""
+    frames = clip_frames(np.random.default_rng(22))
+    want = caches(FusedPipeline(*make_trackers(), chunk=8, ingest="i420").run(iter(frames), N))
+    got = caches(FusedPipeline(*make_trackers(device=dev), chunk=8, ingest="i420")
+                 .run(iter(frames), N))
+    assert got == want

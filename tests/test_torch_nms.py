@@ -110,6 +110,32 @@ def test_batched_nms_matches_ultralytics_twin(rng, nc, conf, iou, max_det):
     np.testing.assert_array_equal(os_[:n], ts)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_halves_equal_batched_nms(rng, case):
+    """`nms_select(nms_candidates(...))`, the fused pipeline's two halves
+    around its drain, equals `batched_nms`; a payload (the pose keypoints
+    of the top-k candidates) is compacted into the same slots as the
+    indices."""
+    make, grid, nc, kw = CASES[case]
+    b, a = 5, 300
+    boxes = torch.from_numpy(_boxes(rng, b, a, grid))
+    scores = torch.from_numpy(make(rng, b, a))
+    classes = (torch.from_numpy(rng.integers(0, nc, (b, a)).astype(np.int32))
+               if nc > 1 else None)
+    payload = torch.arange(b * a * 2, dtype=torch.float32).reshape(b, a, 2)
+    want = nms.batched_nms(boxes, scores, classes, **kw)
+    cands = nms.nms_candidates(boxes, scores, classes, kw["conf_thres"], kw["iou_thres"],
+                               kw["top_k"])
+    top = torch.gather(payload, 1, cands.index.long()[..., None].expand(-1, -1, 2))
+    *got, picked = nms.nms_select(cands, kw["max_det"], payload=top)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    index, valid = want[3], want[4]
+    expect = torch.where(valid[..., None], payload[torch.arange(b)[:, None], index.clamp(min=0)],
+                         torch.zeros(()))
+    assert torch.equal(picked, expect)
+
+
 def test_greedy_keep_stops_at_the_largest_valid_count():
     over = np.ones((2, 4, 4), bool)
     keep = nms.greedy_keep(over, np.array([0, 2]))

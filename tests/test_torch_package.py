@@ -37,10 +37,12 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """The package and chip_smoke.py, which drives it on the card."""
+    """The package, chip_smoke.py, which drives it on the card, and the
+    fused check's fakes that chip_smoke.py imports."""
     smoke = PKG.parent / "chip_smoke.py"
-    assert smoke.is_file()
-    files = [*_sources(), smoke]
+    fakes = PKG.parent / "tests" / "_torch_fused_cases.py"
+    assert smoke.is_file() and fakes.is_file()
+    files = [*_sources(), smoke, fakes]
     assert len(files) > 15
     bad = [
         f"{path.relative_to(PKG.parent)}:{node.lineno} imports {name}"

@@ -135,3 +135,25 @@ def test_cv2_linear_plan_matches_cv2(rng):
     assert np.abs(got - ref).max() <= 1.0
     np.testing.assert_array_equal(resize.cv2_bilinear_matrix(70, 91),
                                   jres.cv2_bilinear_matrix(70, 91))
+
+
+@pytest.mark.parametrize("method", ["pil_bicubic", "cv2_linear"])
+def test_resize_plan_uploads_its_matrices_once(rng, monkeypatch, method):
+    """A second `apply` reuses the device matrices of the first (no upload
+    per call: a pageable upload blocks the host); the result is unchanged."""
+    cached = resize.resize_plan((20, 30), (12, 16), method)
+    # A fresh plan of the same matrices: the cached one may hold its
+    # matrices from another test already.
+    plan = resize.ResizePlan(cached.r_h, cached.r_w, cached.quantize_intermediate)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 20, 30, 3)).astype(np.float32))
+    calls = []
+    real = torch.as_tensor
+    monkeypatch.setattr(resize.torch, "as_tensor",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    first = plan.apply(img)
+    mats = plan.device_matrices(torch.device("cpu"))
+    second = plan.apply(img)
+    assert len(calls) == 2  # r_h and r_w, once
+    assert plan.device_matrices("cpu") is mats
+    assert mats[0].dtype == torch.float32 and mats[0].shape == (12, 20)
+    assert torch.equal(first, second)
