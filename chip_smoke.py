@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's ball, players, pose and fused paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players, pose, fused and collect paths and its CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -62,7 +62,24 @@ is printed):
    (device ms a chunk of each sub-step, host pack ms a frame), and a third
    pass under torch.profiler (device busy share over all streams, the top
    device ops, kernel launches a chunk, the longest device idle gaps, host
-   synchronisations).
+   synchronisations);
+11. the collect pass with the decisive fakes: the fused run's data.csv
+   (TrackingRunner(collect_data=True, render=False), the port's pandas-free
+   writer) must equal the per-tracker run's byte for byte;
+12. the main path with its collect pass: TrackingRunner(fused=True,
+   render=False, collect_data=True) over the same 128-frame rally at full
+   width and the runner's default ingest, data.csv written: the launch
+   counters zeroed before and read after (these are the kernels line's
+   launches), the reference's columns and one row a frame, a second run
+   writing the same bytes, a per-tracker runner over the saved caches (no
+   inference, no launch) writing them too; the collect pass's host ms a
+   frame and fused + collect frames/s printed beside the card; then
+   render=True: where OpenCV is absent the runner must refuse when it is
+   built, naming cv2, before any inference; where it is present, 16 frames
+   are drawn, encoded and read back, and the draw pass timed;
+13. the CLI's own code: apps.cli.run_pipeline over a 32-frame clip in
+   memory with a keypoints JSON and no render, at the reference's default
+   configuration, writing data.csv.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -85,8 +102,11 @@ import torch
 import torch.nn.functional as F
 
 from padel_analytics_tpu_torch import _build
+from padel_analytics_tpu_torch.analytics.data_analytics import COLUMNS
+from padel_analytics_tpu_torch.apps import cli
 from padel_analytics_tpu_torch.config import (
     BallTrackerConfig,
+    PipelineConfig,
     PlayerKeypointsTrackerConfig,
     PlayersTrackerConfig,
 )
@@ -888,11 +908,12 @@ COURT_KEYPOINTS = [(300, 1080), (1620, 1080), (300, 905), (960, 905), (1620, 905
                    (1620, 527), (300, 155), (960, 155), (1620, 155), (300, 150), (1620, 150)]
 
 
-def fixed_court(save=None) -> KeypointsTracker:
+def fixed_court(**cache) -> KeypointsTracker:
+    """The fixed court; `cache`: its load_path or save_path."""
     return KeypointsTracker(
         fixed_keypoints_detection=Keypoints(
             [Keypoint(id=i, xy=(float(x), float(y))) for i, (x, y) in enumerate(COURT_KEYPOINTS)]),
-        save_path=save)
+        **cache)
 
 
 def _json(results) -> list:
@@ -960,6 +981,24 @@ def phase_fused_decisive() -> None:
           f"{found[2]} visible balls)")
 
 
+TRACKER_NAMES = ("players", "pose", "ball", "court")
+
+
+def full_width_trackers(cache_dir: Path, load: bool = False) -> tuple:
+    """(players, pose, ball, court) at the reference's full configuration
+    (YOLOv8m detect with the court polygon gate, YOLOv8m-pose at 1280,
+    TrackNet 288x512, the fixed court), random weights from seed 0, each
+    saving its JSON cache under `cache_dir`, or loading it from there."""
+    paths = {name: cache_dir / f"{name}.json" for name in TRACKER_NAMES}
+    io = {name: ({"load_path": path} if load else {"save_path": path})
+          for name, path in paths.items()}
+    players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                            config=PlayersTrackerConfig(), **io["players"])
+    pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig(), **io["pose"])
+    ball = BallTracker(None, config=BallTrackerConfig(), **io["ball"])
+    return players, pose, ball, fixed_court(**io["court"])
+
+
 def _fused_pass(runner, trackers) -> float:
     runner.restart()
     torch.cuda.synchronize()
@@ -981,15 +1020,9 @@ def phase_fused(frames) -> dict:
     want_k1 = 110 * real_chunks + 17 * chunks
     launches = None
     with tempfile.TemporaryDirectory() as tmp:
-        saves = {name: Path(tmp) / f"{name}.json" for name in ("players", "pose", "ball", "court")}
-        players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
-                                config=PlayersTrackerConfig(), save_path=saves["players"])
-        pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig(),
-                                      save_path=saves["pose"])
-        ball = BallTracker(None, config=BallTrackerConfig(), save_path=saves["ball"])
-        court = fixed_court(saves["court"])
+        trackers = full_width_trackers(Path(tmp))
+        players, pose, ball, court = trackers
         calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in (players, pose)}
-        trackers = (players, pose, ball, court)
         for ingest in ("i420", "rgb"):
             runner = TrackingRunner(list(trackers), clip, tmp, fused=True,
                                     fused_chunk=FUSED_CHUNK, fused_ingest=ingest, render=False,
@@ -1055,6 +1088,172 @@ def _pack_one_ms(frame) -> tuple[float, float]:
     return out[0], out[1]
 
 
+def check_csv(path: Path, n: int) -> int:
+    """data.csv as the reference writes it: the unnamed index and COLUMNS,
+    one row a frame in order, every field empty (NaN) or a finite float.
+    Returns the number of player positions it holds."""
+    lines = path.read_text().splitlines()
+    check(lines[0] == "," + ",".join(COLUMNS), f"{path.name}: header")
+    check(len(lines) == n + 1, f"{path.name}: {len(lines) - 1} rows for {n} frames")
+    positions = 0
+    for i, line in enumerate(lines[1:]):
+        fields = line.split(",")
+        check(len(fields) == len(COLUMNS) + 1 and fields[:2] == [str(i), str(i)],
+              f"{path.name}: row {i}")
+        check(all(f == "" or math.isfinite(float(f)) for f in fields[2:]),
+              f"{path.name}: row {i} holds a value that is not finite")
+        positions += sum(f != "" for f in fields[2:10])
+    return positions
+
+
+def _collect_run(runner, csv: Path) -> tuple[float, bytes]:
+    """One run of the runner (inference, then collect), data.csv written
+    with the port's writer; returns (wall seconds, the file's bytes)."""
+    runner.restart()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    runner.data_analytics.write_csv(csv, runner.video_info.fps)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, csv.read_bytes()
+
+
+def phase_collect(frames, smi: str) -> dict:
+    """The main path: TrackingRunner(fused=True, render=False,
+    collect_data=True) at full width (the runner's default ingest), then
+    data.csv with the port's writer. The launch counters are zeroed before
+    and read after the first run; a second run must write the same bytes;
+    a per-tracker runner over the saved caches (no inference) too.
+    Returns the first run's launch counts."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    chunks = -(-(n + 7) // FUSED_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        trackers = full_width_trackers(tmp)
+        calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in trackers[:2]}
+        runner = TrackingRunner(list(trackers), clip, tmp / "unused.mp4", fused=True,
+                                fused_chunk=FUSED_CHUNK, render=False, collect_data=True)
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        first_s, first = _collect_run(runner, tmp / "data.csv")
+        counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+        check("fused_inference" in runner.stage_times, "collect: the fused path did not run")
+        check(counts["conv3x3_bn_act"] == 110 * -(-n // FUSED_CHUNK) + 17 * chunks
+              and counts["heatmap_cc"] == chunks, f"collect: launches {counts}")
+        positions = check_csv(tmp / "data.csv", n)
+        check(positions > 0, "collect: data.csv holds no player position")
+        second_s, second = _collect_run(runner, tmp / "data.csv")
+        check(second == first, "collect: a second run wrote other data.csv bytes")
+        collect_ms = runner.stage_times["draw_and_collect"] / n * 1e3
+        fused_s = runner.stage_times["fused_inference"]
+
+        # The caches just saved, loaded by a per-tracker runner: no
+        # inference (no launch), the same data.csv.
+        cached = full_width_trackers(tmp, load=True)
+        check(all(len(t) == n for t in cached), "collect: caches not loaded")
+        again = TrackingRunner(list(cached), clip, tmp / "unused.mp4", fused=False,
+                               render=False, collect_data=True)
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        again.run()
+        again.data_analytics.write_csv(tmp / "cached.csv", again.video_info.fps)
+        check(conv3x3.launches == heatmap.launches == 0 and again.stage_times.keys()
+              == {"draw_and_collect"}, "collect: the cache-skip runner ran inference")
+        check((tmp / "cached.csv").read_bytes() == first,
+              "collect: the cache-skip per-tracker run wrote other data.csv bytes")
+        phase_render(cached, clip, tmp)
+    print(f"collect ({smi}): {n} frames 1920x1080, fused ingest {runner.fused_ingest}, "
+          f"{positions} player positions in data.csv; fused + collect {n / first_s:.1f} "
+          f"frames/s first run, {n / second_s:.1f} second (fused inference {n / fused_s:.1f} "
+          f"frames/s); collect pass {collect_ms:.4f} ms a frame on the host; data.csv equal on "
+          f"the second run and from the loaded caches; launches {counts}; calibration {calib}")
+    return counts
+
+
+def phase_render(trackers, clip: MemoryClip, tmp: Path) -> None:
+    """render=True: where OpenCV is absent it must refuse when the runner is
+    built, before any inference; where it is present, 16 frames are drawn
+    and encoded and read back."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        probe = full_width_trackers(tmp / "probe")  # fresh: nothing loaded, nothing inferred
+        conv3x3.reset_launches()
+        try:
+            TrackingRunner(list(probe), clip, tmp / "r.mp4", fused=True, render=True,
+                           collect_data=True)
+        except ImportError as e:
+            check("cv2" in str(e), f"render refusal does not name cv2: {e}")
+        else:
+            raise RuntimeError("chip_smoke: render=True without OpenCV did not refuse")
+        check(conv3x3.launches == 0 and all(len(t) == 0 for t in probe),
+              "render: inference ran before the refusal")
+        print("render: OpenCV absent; TrackingRunner(render=True) refused before inference "
+              "(ImportError naming cv2)")
+        return
+    runner = TrackingRunner(list(trackers), clip, tmp / "r.mp4", end=16, render=True,
+                            collect_data=True)
+    runner.run()
+    cap = cv2.VideoCapture(str(tmp / "r.mp4"))
+    count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    check(count == 16, f"render: {count} frames in the mp4")
+    print(f"render: OpenCV {cv2.__version__} present; 16 frames 1920x1080 drawn, encoded (mp4v) "
+          f"and read back; draw pass {runner.stage_times['draw_and_collect'] / 16 * 1e3:.2f} ms "
+          "a frame on the host")
+
+
+def phase_collect_decisive() -> None:
+    """With the decisive fakes, the fused run's data.csv equals the
+    per-tracker run's (1080p, 45 frames, rgb ingest, chunk 16)."""
+    n = 45
+    clip = MemoryClip(decisive_clip(n, seed=12), fps=30.0)
+    csvs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for fused in (True, False):
+            runner = TrackingRunner(list(_fake_trackers(n)), clip, Path(tmp) / "unused.mp4",
+                                    fused=fused, fused_chunk=FUSED_CHUNK, fused_ingest="rgb",
+                                    render=False, collect_data=True)
+            with torch.inference_mode():
+                runner.run()
+            check(("fused_inference" in runner.stage_times) == fused, "decisive collect: path")
+            path = Path(tmp) / f"{fused}.csv"
+            runner.data_analytics.write_csv(path, runner.video_info.fps)
+            csvs.append(path.read_bytes())
+        positions = check_csv(path, n)
+    check(positions > 0, "decisive collect: no player position")
+    check(csvs[0] == csvs[1], "decisive collect: fused data.csv differs from the per-tracker one")
+    print(f"collect decisive check: {n} frames 1920x1080, fused data.csv equal to the "
+          f"per-tracker one ({positions} player positions)")
+
+
+def phase_cli() -> dict:
+    """The CLI's own code on the card: run_pipeline over a clip in memory
+    (no video file ships with the repo) with a keypoints JSON and no render,
+    the reference's default configuration; returns its launch counts."""
+    n = 32
+    frames = synthetic_players(n, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "keypoints.json").write_text(json.dumps(COURT_KEYPOINTS))
+        cfg = PipelineConfig(output_video_path=str(tmp / "unused.mp4"), render_video=False,
+                             collect_data_path=str(tmp / "data.csv"),
+                             fixed_court_keypoints_load_path=str(tmp / "keypoints.json"))
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        runner = cli.run_pipeline(cfg, video=MemoryClip(frames, fps=30.0), interactive=False)
+        counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+        check("fused_inference" in runner.stage_times, "cli: the fused path did not run")
+        check(all(counts.values()), f"cli: a kernel did not run: {counts}")
+        check_csv(tmp / "data.csv", n)
+    print(f"cli: run_pipeline on a {n}-frame 1920x1080 MemoryClip wrote data.csv ({n} rows); "
+          f"launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1070,9 +1269,13 @@ def main() -> None:
     by_path["pose"] = phase_pose(frames)
     phase_fused_decisive()
     by_path["fused"] = phase_fused(synthetic_players(128, seed=9))
-    # The main path is the fused pipeline: its launches are the kernels'.
+    phase_collect_decisive()
+    by_path["collect"] = phase_collect(synthetic_players(128, seed=9), smi)
+    by_path["cli"] = phase_cli()
+    # The main path is the fused pipeline with the collect pass: its
+    # launches are the kernels'.
     for k, name in ((k1, "conv3x3_bn_act"), (k2, "heatmap_cc")):
-        k["launches"] = by_path["fused"][name]
+        k["launches"] = by_path["collect"][name]
         k["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
     print(smi)
     print(json.dumps({"kernels": [k1, k2]}))

@@ -1,2 +1,3 @@
 """PyTorch / CUDA port of padel_analytics_tpu: the ball, players, pose and
-fixed-court trackers and the fused single-upload pipeline so far."""
+fixed-court trackers, the fused single-upload pipeline, the draw / collect
+pass (data.csv) and the CLI so far."""

@@ -111,7 +111,10 @@ class PipelineConfig:
     collect_data: bool = True
     collect_data_path: str = "data.csv"
     max_frames: Optional[int] = None
+    # False: no annotated video; data.csv is still collected.
     render_video: bool = True
+    # Encode the annotated video at this fraction of the source size.
+    render_scale: float = 1.0
     fixed_court_keypoints_load_path: Optional[str] = None
     fixed_court_keypoints_save_path: Optional[str] = None
     players: PlayersTrackerConfig = field(default_factory=PlayersTrackerConfig)
@@ -135,6 +138,7 @@ class PipelineConfig:
             collect_data_path=get("COLLECT_DATA_PATH", "data.csv"),
             max_frames=get("MAX_FRAMES"),
             render_video=get("RENDER_VIDEO", True),
+            render_scale=get("RENDER_SCALE", 1.0),
             fixed_court_keypoints_load_path=get("FIXED_COURT_KEYPOINTS_LOAD_PATH"),
             fixed_court_keypoints_save_path=get("FIXED_COURT_KEYPOINTS_SAVE_PATH"),
         )

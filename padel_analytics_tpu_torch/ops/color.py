@@ -2,8 +2,8 @@
 
 Counterpart of ``padel_analytics_tpu/ops/color.py``. I420 costs 1.5 bytes a
 pixel on the host->device link against RGB's 3: the fused pipeline packs
-each frame as I420 on the host (`rgb_to_i420`, numpy, since the GPU host
-has no OpenCV) and rebuilds RGB on the device (`i420_to_rgb`, int32 torch
+each frame as I420 on the host (`rgb_to_i420`, numpy: the port does not
+depend on OpenCV) and rebuilds RGB on the device (`i420_to_rgb`, int32 torch
 ops). The only loss against RGB ingest is the chroma subsampling.
 
 Both use OpenCV's integer BT.601 (shift 20, round half up):

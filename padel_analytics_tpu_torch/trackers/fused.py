@@ -497,8 +497,12 @@ class FusedPipeline:
                 """Host side of chunk k: decode fill, then pack into its
                 staging slot once the slot's last upload is done."""
                 lo, hi = k * b, min((k + 1) * b, n_ext)
-                avail = min(fw.fill_to(min(hi, n)), n)
-                frames = [fw.get(i) if i < avail else zero_frame for i in range(lo, hi)]
+                avail = fw.fill_to(min(hi, n))
+                if avail < min(hi, n):
+                    raise ValueError(f"the frame iterator ran dry after {avail} frames of "
+                                     f"total_frames={n}")
+                # Only the ball's tail, past the clip, is zero frames.
+                frames = [fw.get(i) if i < n else zero_frame for i in range(lo, hi)]
                 frames += [zero_frame] * (b - len(frames))
                 self._pack_chunk(frames, ring.acquire(k), pack_pool)
                 fw.drop_below(min(hi, n))  # frames are kept until packed
@@ -686,7 +690,8 @@ class FusedPipeline:
         seq_len = ball.tracknet_seq_len
         if fw.fill_to(seq_len) < seq_len or not len(fw):
             raise ValueError("clip shorter than seq_len")
-        n = total_frames  # trusted: the runner clamps it to the clip
+        # Checked as the chunks are packed: a clip shorter than this raises.
+        n = total_frames
         src_hw = tuple(fw.first().shape[:2])
         # Settle the run's wire format before anything derives from it.
         self._check_ingest(src_hw)

@@ -234,6 +234,13 @@ class Ball(TrackedObject):
         cv2.circle(frame, self.asint(), 6, _GREEN_RGB, -1)
         return frame
 
+    def draw_projection(self, frame: np.ndarray) -> np.ndarray:
+        """Draw the ball's court projection."""
+        import cv2
+
+        cv2.circle(frame, self.projection, 6, (255, 255, 0), -1)
+        return frame
+
 
 class Keypoint(TrackedObject):
     """Court keypoint."""

@@ -1,5 +1,5 @@
 """TrackingRunner: the inference pass with a single decode, fused or per
-tracker.
+tracker, then the draw / collect pass.
 
 Counterpart of ``padel_analytics_tpu/trackers/runner.py``. The video is
 decoded once into a `FrameStore` (RAM up to a cap, re-decode beyond). With
@@ -10,22 +10,43 @@ inference when its JSON cache already holds predictions, else runs
 `predict_and_update` over the store (`stage_times[name]`). Every tracker
 that inferred saves its cache.
 
-Not ported yet: the draw / collect pass (it needs ProjectedCourt, the
-homography and DataAnalytics) and the streaming drawer; asking for either
-raises NotImplementedError.
+Then the draw / collect pass (`stage_times["draw_and_collect"]`): with
+`render=True` each frame is decoded again, annotated (every tracker's
+`draw`, the minimap, the projections; OpenCV) and encoded, and the player
+projections feed `DataAnalytics` when `collect_data=True`; with
+`render=False` the projections alone feed it, from the stored predictions,
+with no decode and no OpenCV (`collect_data_only`); with neither, the pass
+is skipped. Both give the same `data_analytics`. `fused_stream_draw=True` draws on a worker thread while
+the fused pass runs (`_StreamingDrawer`). A runner asked to render where
+OpenCV is absent raises ImportError when it is constructed.
 """
 
 from __future__ import annotations
 
+import threading
 import timeit
+from copy import deepcopy
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from ..utils.video import MemoryClip, VideoInfo, frame_generator
+from ..utils.video import MemoryClip, VideoInfo, frame_generator, make_video_writer
 from .base import Tracker
 from .fused import FusedPipeline
+from .objects import Ball, Keypoints, Players
+
+
+def _require_cv2() -> None:
+    """Raise an ImportError that says rendering needs OpenCV, where it is
+    absent."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "render=True needs OpenCV (cv2), which is not installed here: pass render=False "
+            "to collect data.csv without drawing"
+        ) from e
 
 
 class FrameStore:
@@ -57,8 +78,74 @@ class FrameStore:
             self._frames = frames
 
 
+class _StreamingDrawer:
+    """The draw / collect pass on a worker thread, beside the fused pass.
+
+    The fused drain appends finished frames to the trackers' results in
+    frame order and calls notify(n_ready); the worker draws frame i once
+    i < n_ready. It decodes the video with its own uncached FrameStore, so
+    the two decodes never share state; OpenCV and numpy release the
+    interpreter lock while they draw and encode."""
+
+    def __init__(self, runner: "TrackingRunner"):
+        self.runner = runner
+        self._cond = threading.Condition()
+        self._ready = 0
+        self._done = False
+        self.exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def notify(self, n_ready: int) -> None:
+        with self._cond:
+            if n_ready > self._ready:
+                self._ready = n_ready
+                self._cond.notify_all()
+
+    def finish(self) -> None:
+        """Signal the end of the results, join, re-raise the worker's error."""
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+        self._thread.join()
+        if self.exc is not None:
+            raise self.exc
+
+    def abort(self) -> None:
+        """finish() for an error path: joins, and drops the worker's error
+        (the caller's own is the one that surfaces)."""
+        with self._cond:
+            self._done = True
+            self._cond.notify_all()
+        self._thread.join()
+
+    def _run(self) -> None:
+        r = self.runner
+        try:
+            print(f"runner: Writing results into {r.inference_path} (streaming)")
+            t0 = timeit.default_timer()
+            writer = r._open_writer()
+            try:
+                store = FrameStore(r.video_path, r.start, r.stride, r.end, max_cached_frames=0)
+                for frame_index, frame in enumerate(store):
+                    if frame_index >= r.total_frames:
+                        break
+                    with self._cond:
+                        while self._ready <= frame_index and not self._done:
+                            self._cond.wait()
+                        if self._ready <= frame_index:
+                            break  # done, and no result for this frame
+                    r._draw_one(writer, frame_index, frame)
+            except BaseException:
+                writer.release()  # finalise the container before the error surfaces
+                raise
+            r._finish_draw(writer, t0)
+        except BaseException as e:  # surfaced by finish()
+            self.exc = e
+
+
 class TrackingRunner:
-    """Runs a sequence of trackers over a video."""
+    """Runs a sequence of trackers over a video, then draws and collects."""
 
     def __init__(
         self,
@@ -79,18 +166,22 @@ class TrackingRunner:
         # stride 1 (the reference's rolling ensemble) are the ported values.
         fused_association: str = "auto",
         fused_ball_stride: int = 1,
+        # Draw on a worker thread while the fused pass runs (render only).
         fused_stream_draw: bool = False,
+        # False: no decode, drawing or encode after inference; data.csv is
+        # collected from the stored predictions alone.
         render: bool = True,
+        # Encode the annotated video at this fraction of the source size
+        # (drawn and collected at full size; data.csv is the same at any).
+        render_scale: float = 1.0,
+        # 'inline' encodes in this process, 'subprocess' in a child process
+        # fed over a pipe (the same mp4v output).
+        encoder: str = "inline",
     ):
-        if render or collect_data:
-            raise NotImplementedError(
-                "the draw / collect pass is not ported yet (ROADMAP.md Queue 1: Draw / collect): "
-                "pass render=False, collect_data=False"
-            )
-        if fused_stream_draw:
-            raise NotImplementedError(
-                "the streaming drawer is not ported yet (ROADMAP.md Queue 1 item 5)"
-            )
+        if render:
+            _require_cv2()  # before any decode or inference
+        if not 0.0 < render_scale <= 1.0:
+            raise ValueError(f"render_scale must be in (0, 1], got {render_scale}")
         self.fused = fused
         self.fused_chunk = fused_chunk
         self.fused_ingest = fused_ingest
@@ -98,35 +189,56 @@ class TrackingRunner:
             # Refuse the fused options that are not ported here, before any
             # decode, rather than after the per-tracker set-up.
             FusedPipeline.check_options(fused_ingest, fused_association, fused_ball_stride)
+        # With nothing to draw, the drawer stays off.
+        self.fused_stream_draw = fused_stream_draw and render
+        self.render = render
+        self.render_scale = float(render_scale)
+        self.encoder = encoder
         self.video_path = video_path
         self.inference_path = inference_path
         self.start = start
         self.stride = 1
         self.end = end
         self.video_info = VideoInfo.from_video_path(video_path)
-        # Clamped to the clip: the fused loop trusts this count, and an `end`
-        # past the clip would otherwise emit results for frames that do not
-        # exist (the JAX runner's `end - start` is not clamped).
+        # Clamped to the clip: an `end` past the clip would otherwise ask
+        # for frames that do not exist (the JAX runner's `end - start` is
+        # not clamped).
         clip_frames = self.video_info.total_frames
         last = clip_frames if end is None else min(end, clip_frames)
         self.total_frames = max(0, last - start)
         self.frame_store = FrameStore(video_path, start, self.stride, end, max_cached_frames)
-        self.trackers: dict[str, Tracker] = {
-            str(t): t.video_info_post_init(self.video_info) for t in trackers
-        }
+        self.trackers: dict[str, Tracker] = {}
+        self.is_fixed_keypoints = False
+        for tracker in trackers:
+            self.trackers[str(tracker)] = tracker.video_info_post_init(self.video_info)
+            if tracker.object() == Keypoints:
+                self.is_fixed_keypoints = (
+                    getattr(tracker, "fixed_keypoints_detection", None) is not None)
+        # Imported here: the analytics import this package's objects.
+        from ..analytics import DataAnalytics, ProjectedCourt
+
+        self.projected_court = ProjectedCourt(self.video_info)
+        self.data_analytics = DataAnalytics() if collect_data else None
         self.stage_times: dict[str, float] = {}
         self._fused_pipeline: Optional[FusedPipeline] = None
+        self._fused_drew = False  # the last fused run drew as it went
 
     def restart(self) -> None:
-        """Forget every tracker's results (the next run infers again)."""
+        """Forget every tracker's results and the collected data (the next
+        run infers and collects again)."""
         for tracker in self.trackers.values():
             tracker.restart()
+        if self.data_analytics is not None:
+            self.data_analytics.restart()
 
     def run(self) -> None:
-        """Inference: the fused pipeline when asked for and the trackers fit
-        it, else per tracker; each tracker skipped where a cache was loaded."""
+        """Inference (the fused pipeline when asked for and the trackers fit
+        it, else per tracker; each tracker skipped where a cache was
+        loaded), then the draw / collect pass."""
         print(f"runner: Running {self.total_frames} frames")
         if self.fused and self._try_fused_run():
+            if not self._fused_drew:
+                self.draw_and_collect_data()
             return
         for tracker in self.trackers.values():
             if len(tracker) != 0:
@@ -138,6 +250,7 @@ class TrackingRunner:
             self.stage_times[str(tracker)] = t1 - t0
             print(f"{tracker}: {t1 - t0:.2f}s inference time.")
             tracker.save_predictions()
+        self.draw_and_collect_data()
 
     def _try_fused_run(self) -> bool:
         """Run players + pose + ball (+ fixed court) in the single-upload
@@ -168,12 +281,34 @@ class TrackingRunner:
                 by_name["ball_tracker"], court, chunk=self.fused_chunk,
                 ingest=self.fused_ingest,
             )
-        out = pipeline.run(iter(self.frame_store), total_frames=self.total_frames)
+        drawer, stream = None, None
+        self._fused_drew = False
+        if self.fused_stream_draw:
+            drawer = _StreamingDrawer(self)
+            targets = [by_name[name].results.predictions for name in needed]
+            if court is not None:
+                targets.append(court.results.predictions)
+
+            def stream(*new):
+                for results, objs in zip(targets, new):
+                    results += objs
+                drawer.notify(len(targets[2]))
+
+        try:
+            out = pipeline.run(iter(self.frame_store), total_frames=self.total_frames,
+                               stream=stream)
+        except BaseException:
+            if drawer is not None:
+                drawer.abort()
+            raise
         by_name["players_tracker"].results.load(out["players"])
         by_name["players_keypoints_tracker"].results.load(out["players_keypoints"])
         by_name["ball_tracker"].results.load(out["ball"])
         if court is not None:
             court.results.load(out["keypoints"])
+        if drawer is not None:
+            drawer.finish()
+            self._fused_drew = True
         self.stage_times["fused_inference"] = timeit.default_timer() - t0
         print(f"runner: fused inference {self.stage_times['fused_inference']:.2f}s")
         for name in needed:
@@ -181,3 +316,127 @@ class TrackingRunner:
         if court is not None:
             court.save_predictions()
         return True
+
+    # --- draw / collect ----------------------------------------------------
+
+    @property
+    def render_resolution_wh(self) -> tuple[int, int]:
+        """The output video's size: the source's scaled by render_scale,
+        rounded to even sizes."""
+        w, h = self.video_info.resolution_wh
+        if self.render_scale == 1.0:
+            return (w, h)
+        return (max(2, int(round(w * self.render_scale / 2)) * 2),
+                max(2, int(round(h * self.render_scale / 2)) * 2))
+
+    def _open_writer(self):
+        return make_video_writer(self.inference_path, fps=float(self.video_info.fps),
+                                 resolution_wh=self.render_resolution_wh, encoder=self.encoder)
+
+    def _draw_one(self, writer, frame_index: int, frame: np.ndarray) -> None:
+        """Draw and collect one frame (the body of the reference's draw
+        loop), then write it."""
+        import cv2
+
+        # A copy: the store may serve its cache, which drawing must not
+        # change (a later run would infer on annotated frames).
+        frame_rgb = np.ascontiguousarray(frame).copy()
+        cv2.putText(frame_rgb, f"Frame: {frame_index + 1}", (20, 50), cv2.FONT_HERSHEY_SIMPLEX,
+                    1, (255, 255, 0), 1)
+        players_detection = ball_detection = keypoints_detection = None
+        for tracker in self.trackers.values():
+            try:
+                prediction = tracker.results[frame_index]
+            except IndexError:
+                print(f"runner: {tracker} missing frame {frame_index}")
+                raise
+            frame_rgb = prediction.draw(frame_rgb, **tracker.draw_kwargs())
+            # Copies: the projections are written on them, and the stored
+            # predictions stay as their caches hold them.
+            if tracker.object() == Players:
+                players_detection = deepcopy(prediction)
+            elif tracker.object() == Ball:
+                ball_detection = deepcopy(prediction)
+            elif tracker.object() == Keypoints:
+                keypoints_detection = deepcopy(prediction)
+        output_frame, self.data_analytics = self.projected_court.draw_projections_and_collect_data(
+            frame_rgb,
+            keypoints_detection=keypoints_detection,
+            players_detection=players_detection,
+            ball_detection=ball_detection,
+            data_analytics=self.data_analytics,
+            is_fixed_keypoints=self.is_fixed_keypoints,
+        )
+        if self.data_analytics is not None:
+            self.data_analytics.step(1)
+        if self.render_scale != 1.0:
+            output_frame = cv2.resize(output_frame, self.render_resolution_wh,
+                                      interpolation=cv2.INTER_AREA)
+        writer.write(output_frame)
+
+    def _trim_trailing_frame(self) -> None:
+        # The reference's loop leaves one extra frame entry at the end.
+        if self.data_analytics is not None:
+            self.data_analytics.frames = self.data_analytics.frames[:-1]
+
+    def _finish_draw(self, writer, t0: float) -> None:
+        writer.release()
+        self._trim_trailing_frame()
+        self.stage_times["draw_and_collect"] = timeit.default_timer() - t0
+        print("runner: Done.")
+
+    def collect_data_only(self) -> None:
+        """Collect without rendering: no decode, no OpenCV, no writer. The
+        stored predictions go through the same projection path as the draw
+        loop, so data_analytics is the same."""
+        print("runner: Collecting data (render=False; no video output)")
+        t0 = timeit.default_timer()
+        for name, tracker in self.trackers.items():
+            if len(tracker.results) < self.total_frames:
+                # The draw loop fails on the same condition with an
+                # IndexError; fail as loudly here rather than truncate.
+                raise ValueError(
+                    f"tracker {name!r} has {len(tracker.results)} results for a "
+                    f"{self.total_frames}-frame clip: inconsistent prediction cache (delete it "
+                    "or run inference again)"
+                )
+        for frame_index in range(self.total_frames):
+            players_detection = keypoints_detection = None
+            for tracker in self.trackers.values():
+                prediction = tracker.results[frame_index]
+                if tracker.object() == Players:
+                    # project_player writes .projection: a copy keeps the
+                    # stored predictions as their caches hold them.
+                    players_detection = deepcopy(prediction)
+                elif tracker.object() == Keypoints:
+                    keypoints_detection = prediction
+            self.data_analytics = self.projected_court.collect_data_single_frame(
+                keypoints_detection=keypoints_detection,
+                players_detection=players_detection,
+                data_analytics=self.data_analytics,
+                is_fixed_keypoints=self.is_fixed_keypoints,
+            )
+            if self.data_analytics is not None:
+                self.data_analytics.step(1)
+        self._trim_trailing_frame()
+        self.stage_times["draw_and_collect"] = timeit.default_timer() - t0
+        print("runner: Done.")
+
+    def draw_and_collect_data(self) -> None:
+        """Render the annotated video with the minimap projections and
+        collect the data; with render=False, collect only (and with
+        neither, do nothing)."""
+        if not self.render:
+            if self.data_analytics is not None:
+                self.collect_data_only()
+            return
+        print(f"runner: Writing results into {self.inference_path}")
+        t0 = timeit.default_timer()
+        writer = self._open_writer()
+        try:
+            for frame_index, frame in enumerate(self.frame_store):
+                self._draw_one(writer, frame_index, frame)
+        except BaseException:
+            writer.release()  # finalise the container (and free the shared encoder)
+            raise
+        self._finish_draw(writer, t0)

@@ -136,7 +136,7 @@ def test_runner_refuses_unported_passes(tmp_path, rng):
     _write_clip(rng, clip, 2)
     tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
-    for kwargs in ({"render": True}, {"render": False, "collect_data": True},
+    for kwargs in ({"render": False, "fused": True, "fused_association": "device"},
                    {"render": False, "fused": True, "fused_ingest": "derived"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrackingRunner([tracker], clip, tmp_path / "o.mp4", **kwargs)

@@ -178,6 +178,17 @@ def test_runner_clamps_end_past_the_clip(rng, tmp_path, fused):
     assert [len(t.results) for t in trackers] == [20] * 4
 
 
+def test_fused_refuses_a_clip_shorter_than_total_frames(rng):
+    """total_frames past the end of the frames: a ValueError, not results
+    for frames that do not exist."""
+    frames = clip_frames(rng, n=20)
+    pipe = FusedPipeline(*make_trackers(n=40), chunk=8)
+    with pytest.raises(ValueError, match="ran dry after 20 frames of total_frames=40"):
+        pipe.run(iter(frames), total_frames=40)
+    out = pipe.run(iter(frames), total_frames=20)  # the same pipeline, the right count
+    assert [len(v) for v in out.values()] == [20] * 4
+
+
 def test_runner_keeps_a_loaded_cache_and_restarts(rng, tmp_path):
     """A tracker whose cache is loaded is not inferred again; the fused
     path then gives way to the per-tracker one. restart() clears results."""
@@ -244,8 +255,7 @@ def test_unported_modes_raise(item):
 
 @pytest.mark.parametrize("kwargs", [{"fused_ingest": "derived"},
                                     {"fused_association": "device"},
-                                    {"fused_ball_stride": 8},
-                                    {"fused_stream_draw": True}])
+                                    {"fused_ball_stride": 8}])
 def test_runner_refuses_unported_fused_options(rng, tmp_path, kwargs):
     clip = tmp_path / "clip.mp4"
     _write_clip(clip, clip_frames(rng, n=2))

@@ -44,6 +44,10 @@ def test_port_imports_no_jax():
     assert smoke.is_file() and fakes.is_file()
     files = [*_sources(), smoke, fakes]
     assert len(files) > 15
+    scanned = {p.relative_to(PKG).as_posix() for p in _sources()}
+    assert {"analytics/data_analytics.py", "analytics/projected_court.py", "apps/cli.py",
+            "apps/keypoint_picker.py", "ops/homography.py", "utils/conversions.py",
+            "utils/encoder_worker.py", "utils/video.py", "trackers/runner.py"} <= scanned
     bad = [
         f"{path.relative_to(PKG.parent)}:{node.lineno} imports {name}"
         for path in files
@@ -51,6 +55,16 @@ def test_port_imports_no_jax():
         if name.split(".")[0] in FORBIDDEN
     ]
     assert not bad, bad
+
+
+def test_encoder_worker_stands_alone():
+    """The encoder child is run by path and imports nothing of either
+    package (and no torch): only the standard library, numpy and cv2."""
+    worker = PKG / "utils" / "encoder_worker.py"
+    names = {name.split(".")[0] for _, name in _imports(worker)}
+    assert names <= {"__future__", "struct", "sys", "numpy", "cv2"}, names
+    tree = ast.parse(worker.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.level > 0]
 
 
 def test_cv2_is_imported_lazily():
