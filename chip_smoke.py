@@ -26,8 +26,9 @@ is printed):
    batch 8, 50% at 16) and bars through every band, each bit-equal to the
    plain version and timed; cudaOccupancyMaxActiveClusters of each size and
    the plan's choice printed;
-5. the models: TrackNet, YOLOv8m detect and YOLOv8m-pose on the card (bf16,
-   K1) against their fp32 plain path on the CPU, on a small input;
+5. the models: TrackNet, TrackNet with subpixel_up (also against the dense
+   TrackNet), YOLOv8m detect and YOLOv8m-pose on the card (bf16, K1)
+   against their fp32 plain path on the CPU, on a small input;
 6. the ball slice: BallTracker at its full configuration (288x512, seq_len 8,
    bg_mode concat, batch 8, bf16, median over the clip's head) with random
    weights from a seed, on a synthetic 1920x1080 rally clip, through
@@ -79,7 +80,23 @@ is printed):
    are drawn, encoded and read back, and the draw pass timed;
 13. the CLI's own code: apps.cli.run_pipeline over a 32-frame clip in
    memory with a keypoints JSON and no render, at the reference's default
-   configuration, writing data.csv.
+   configuration, writing data.csv;
+14. the fast configuration, the JAX package's headline plan:
+   TrackingRunner(fused=True, fused_ingest="derived", fused_wire_long_side
+   =960) with YOLOv8m detect @640, YOLOv8m-pose @640 and TrackNet with
+   subpixel_up, a fixed court, on the 128-frame 1080p rally at chunk 16,
+   once at fused_ball_stride=1 and once at 8: K1 checked and timed at its
+   new shapes (pose at 640x640, the subpixel skip convs with an identity
+   epilogue) beside cuDNN and the bound; the resize passes' dense or banded
+   form printed, and the banded passes of the fused plans against the
+   dense form on the card; the host's INTER_AREA bit-equal to cv2 where
+   OpenCV imports; the host pack (INTER_AREA and I420 apart, one thread and
+   the pool); decisive fakes at 1080p (the derived run's boxes and
+   keypoints equal to the rgb run's within 1e-2 px, the nonoverlap caches
+   equal to the stride-1 caches); then per stride two passes (the second
+   equal to the first), the launches counted over the first,
+   measure_device_split, peak device memory and a profiled pass (K1 and K2
+   device ms a chunk).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -113,7 +130,9 @@ from padel_analytics_tpu_torch.config import (
 from padel_analytics_tpu_torch.models.layers import ConvBN, lecun_normal_
 from padel_analytics_tpu_torch.models.tracknet import make_tracknet
 from padel_analytics_tpu_torch.models.yolov8 import C2f, YOLOv8
-from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
+from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms, resize
+from padel_analytics_tpu_torch.ops.area import resize_area, resize_area_planes
+from padel_analytics_tpu_torch.ops.color import planes_to_i420, rgb_to_i420
 from padel_analytics_tpu_torch.ops.polygon import PolygonZone
 from padel_analytics_tpu_torch.trackers import (
     BallTracker,
@@ -125,6 +144,7 @@ from padel_analytics_tpu_torch.trackers import (
     PlayerTracker,
     TrackingRunner,
 )
+from padel_analytics_tpu_torch.trackers.fused import PACK_THREADS
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
 
 # The decisive fakes of the fused check (outputs far from every threshold, so
@@ -165,14 +185,30 @@ K1_RTOL, K1_ATOL = 2.0 ** -6, 1e-3
 # Whole-model check: the bf16 K1 path against the fp32 plain path, sigmoid
 # heatmaps after 18 convs in bf16.
 MODEL_ATOL = 5e-2
+# TrackNet with subpixel_up, He-normal weights (a live signal: the fp32
+# heatmaps' std must pass SUBPIXEL_MIN_STD), bf16 on the card against the
+# fp32 plain path of itself and of the dense TrackNet. Measured on the H100
+# (80GB HBM3, 700 W): max abs err 0.0065 against both, std 0.326.
+SUBPIXEL_ATOL, SUBPIXEL_MIN_STD = 2e-2, 0.1
 # YOLOv8m on the card in bf16 against its fp32 plain path, random weights:
 # sigmoid scores and keypoint confidences (abs), box and keypoint
 # coordinates in input pixels (abs) after ~90 bf16 layers.
 # Measured on the H100: <= 2e-4 and <= 0.0074 px, against a spread of the
 # fp32 scores of ~0.016 (He-normal weights keep the signal weak but alive).
 YOLO_SCORE_ATOL, YOLO_PIXEL_ATOL = 4e-3, 0.5
-# Input sizes of the two YOLOv8m paths on 1080p frames (H, W).
-DETECT_HW, POSE_HW = (384, 640), (1280, 1280)
+# Input sizes of the two YOLOv8m paths on 1080p frames (H, W), and of the
+# fast configuration's pose at 640.
+DETECT_HW, POSE_HW, POSE640_HW = (384, 640), (1280, 1280), (640, 640)
+# TrackNet with subpixel_up: its up blocks' first convs leave K1 (the up part
+# runs as phase convs at low resolution) and their skip parts enter it, 3x3
+# convs Cin = Cout with an identity epilogue; the other 14 convs stay.
+SUBPIXEL_SKIP_CONVS = [(256, 256, 72, 128), (128, 128, 144, 256), (64, 64, 288, 512)]
+_UP_FIRSTS = {(768, 256, 72, 128), (384, 128, 144, 256), (192, 64, 288, 512)}
+TRACKNET_SUBPIXEL_CALLS = (
+    [((s, "relu")) for s in TRACKNET_CONVS if s not in _UP_FIRSTS]
+    + [(s, "none") for s in SUBPIXEL_SKIP_CONVS])
+# The derived ingest's wire: the long side of a 1080p frame cut to 960.
+WIRE_LONG_SIDE = 960
 
 
 def check(cond: bool, what: str) -> None:
@@ -252,7 +288,7 @@ def _library_bf16(x, w_oihw, scale, bias, act):
     the port."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, padding=1)
     y = y * scale[:, None, None] + bias[:, None, None]
-    y = torch.relu(y) if act == "relu" else F.silu(y)
+    y = conv3x3._act(y, act)
     return y.permute(0, 2, 3, 1)
 
 
@@ -353,22 +389,28 @@ def _split_copies(dev, name: str, splits) -> None:
           f"{ms:.3f} ms, bound {nbytes / PEAK_BYTES_S * 1e3:.3f} ms (bytes)")
 
 
-def phase_k1(dev) -> dict:
+def _k1_calls(dev, timed: dict, convs, batch) -> list[dict]:
+    """Each (shape, act) of `convs` checked and timed once at `batch`
+    (`timed` holds what earlier calls measured); the timings in call order."""
+    g = torch.Generator(device="cpu").manual_seed(len(timed) + 1)
+    for s, act in convs:
+        if (s, act, batch) not in timed:
+            timed[s, act, batch] = _k1_shape(dev, g, *s, act, batch)
+    return [timed[s, act, batch] for s, act in convs]
+
+
+def phase_k1(dev, timed: dict) -> dict:
     """K1 at every call shape of the three models, at the per-tracker
     paths' batch of 8 and at the fused main path's chunk of 16 (TrackNet
     there runs one window a chunk frame). The kernels line carries one fused
-    chunk's K1 work: its 127 launches summed at B=16."""
-    g = torch.Generator(device="cpu").manual_seed(1)
+    chunk's K1 work: its 127 launches summed at B=16. `timed` collects
+    every (shape, act, batch) checked and timed."""
     models = {"detect": (YOLOv8("m", 1), DETECT_HW), "pose": (YOLOv8("m", 1, 13), POSE_HW)}
     detect, pose = (k1_call_shapes(m, *hw) for m, hw in models.values())
     check(len(detect) == 52 and len(pose) == 58, f"K1 call sites {len(detect)}, {len(pose)}")
-    timed: dict = {}  # (shape, act, batch) -> timing, each checked and timed once
 
     def calls(convs, act, batch) -> list[dict]:
-        for s in convs:
-            if (s, act, batch) not in timed:
-                timed[s, act, batch] = _k1_shape(dev, g, *s, act, batch)
-        return [timed[s, act, batch] for s in convs]
+        return _k1_calls(dev, timed, [(s, act) for s in convs], batch)
 
     paths = {"tracknet_288x512": ("TrackNet", TRACKNET_CONVS, "relu"),
              "yolov8m_detect_384x640": ("YOLOv8m detect @384x640", detect, "silu"),
@@ -504,8 +546,8 @@ def phase_k2(dev) -> dict:
 
 
 def phase_model(dev) -> None:
-    """TrackNet, YOLOv8m detect and YOLOv8m-pose on the card (bf16, K1)
-    against their fp32 plain path on the CPU."""
+    """TrackNet (dense and subpixel), YOLOv8m detect and YOLOv8m-pose on
+    the card (bf16, K1) against their fp32 plain path on the CPU."""
     model, in_dim = make_tracknet(8, "concat")
     lecun_normal_(model, torch.Generator().manual_seed(4))
     model.eval()
@@ -521,19 +563,54 @@ def phase_model(dev) -> None:
     check(err <= MODEL_ATOL, f"TrackNet bf16 on the card vs fp32 plain: max err {err}")
     print(f"TrackNet 2x64x128 bf16 (K1) vs fp32 plain: max abs err {err:.4f} "
           f"(bound {MODEL_ATOL})")
+    _subpixel_model_check(dev)
     for nk in (0, 13):
         _yolo_model_check(dev, nk)
 
 
-def _yolo_model_check(dev, nk: int) -> None:
-    name = "YOLOv8m-pose" if nk else "YOLOv8m detect"
-    model = YOLOv8("m", 1, nk)
-    lecun_normal_(model, torch.Generator().manual_seed(7 + nk))
-    with torch.no_grad():  # He-normal: under LeCun the signal dies out with depth
+def he_normal_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """N(0, 2/fan_in) conv weights, identity BatchNorm: under the package's
+    LeCun init the signal dies out with depth."""
+    lecun_normal_(model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d):
                 m.weight.mul_(math.sqrt(2.0))
-    model.eval()
+    return model.eval()
+
+
+def _subpixel_model_check(dev) -> None:
+    """TrackNet with subpixel_up in bf16 on the card (K1 on its 14 ConvBNs
+    and its 3 skip convs, the phase layout, the fp32 epilogue) against the
+    fp32 plain path of itself and of the dense TrackNet on the CPU."""
+    model, in_dim = make_tracknet(8, "concat", subpixel_up=True)
+    he_normal_(model, 4)
+    dense, _ = make_tracknet(8, "concat")
+    dense.load_state_dict(model.state_dict())
+    dense.eval()
+    x = torch.rand((2, 64, 128, in_dim), generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        ref, ref_dense = model(x), dense(x)
+    spread = float(ref.std())
+    check(spread > SUBPIXEL_MIN_STD, f"TrackNet subpixel fp32: heatmap std {spread}, a dead signal")
+    model.to(dev)
+    conv3x3.reset_launches()
+    with torch.inference_mode():
+        got = model(x.to(dev, torch.bfloat16)).cpu()
+    check(conv3x3.launches == 17, f"TrackNet subpixel: {conv3x3.launches} K1 launches")
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+          "TrackNet subpixel: output shape or finiteness")
+    err, err_dense = float((got - ref).abs().max()), float((got - ref_dense).abs().max())
+    check(max(err, err_dense) <= SUBPIXEL_ATOL,
+          f"TrackNet subpixel bf16 on the card vs fp32 plain: max err {err}, vs dense {err_dense}")
+    print(f"TrackNet subpixel 2x64x128 bf16 (K1, He-normal) vs fp32 plain: max abs err "
+          f"{err:.4f}, vs the dense TrackNet {err_dense:.4f} (bound {SUBPIXEL_ATOL}; "
+          f"heatmap std {spread:.3f})")
+
+
+def _yolo_model_check(dev, nk: int) -> None:
+    name = "YOLOv8m-pose" if nk else "YOLOv8m detect"
+    model = he_normal_(YOLOv8("m", 1, nk), 7 + nk)
     x = torch.rand((2, 128, 160, 3), generator=torch.Generator().manual_seed(8))
     with torch.inference_mode():
         ref = model(x)
@@ -681,12 +758,16 @@ def profile_run(run, label: str, kernels, top_n: int = 0, chunks: int = 0,
         return {}
     busy_ms, idle = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
     summed_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    parts = []
+    parts, kernel_ms = [], {}
     for name, key in kernels:
         ev = [e for e in dev if key in e.name]
-        per = f", {len(ev) / chunks:.1f} a chunk" if chunks else ""
-        parts.append(f"{name} {sum(e.time_range.elapsed_us() for e in ev) / 1e3:.3f} ms "
-                     f"in {len(ev)} launches{per}")
+        if not ev:
+            parts.append(f"{name} not measured (no launch seen by the profiler)")
+            continue
+        kernel_ms[name] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        per = (f", {len(ev) / chunks:.1f} a chunk ({kernel_ms[name] / chunks:.3f} ms a chunk)"
+               if chunks else "")
+        parts.append(f"{name} {kernel_ms[name]:.3f} ms in {len(ev)} launches{per}")
     print(f"{label} profile: pass {wall_ms:.1f} ms under the profiler, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%; summed over streams "
           f"{summed_ms:.1f} ms); " + "; ".join(parts))
@@ -709,7 +790,7 @@ def profile_run(run, label: str, kernels, top_n: int = 0, chunks: int = 0,
                     "cudaMemcpy"):
                 syncs[e.name] = syncs.get(e.name, 0) + 1
         print(f"  {label} host synchronising CUDA calls: {syncs or 'none recorded'}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": kernel_ms}
 
 
 # The players' polygon gate: the synthetic rally's court from its far line
@@ -937,10 +1018,11 @@ def decisive_clip(n: int, seed: int) -> list[np.ndarray]:
     return frames
 
 
-def _fake_trackers(n: int):
+def _fake_trackers(n: int, pose_size: int = 1280):
     players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
                             config=PlayersTrackerConfig())
-    pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig())
+    pose = PlayerKeypointsTracker(
+        None, config=PlayerKeypointsTrackerConfig(train_image_size=pose_size))
     ball = BallTracker(None, config=BallTrackerConfig())
     players.engine.model = CellDetector(pose=False)
     pose.engine.model = CellDetector(pose=True)
@@ -1254,13 +1336,290 @@ def phase_cli() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the fast configuration (the JAX package's headline plan).
+
+
+def fast_trackers(cache_dir: Path) -> tuple:
+    """(players, pose, ball, court) of the fast configuration: YOLOv8m detect
+    @640 with the polygon gate, YOLOv8m-pose @640, TrackNet 288x512 with
+    subpixel_up, the fixed court; random weights from seed 0, each saving
+    its JSON cache under `cache_dir`."""
+    save = {name: {"save_path": cache_dir / f"{name}.json"} for name in TRACKER_NAMES}
+    players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                            config=PlayersTrackerConfig(), **save["players"])
+    pose = PlayerKeypointsTracker(
+        None, config=PlayerKeypointsTrackerConfig(train_image_size=640), **save["pose"])
+    ball = BallTracker(None, config=BallTrackerConfig(subpixel_up=True), **save["ball"])
+    return players, pose, ball, fixed_court(**save["court"])
+
+
+def phase_fast_k1(dev, timed: dict, k1: dict) -> dict:
+    """K1 at the fast configuration's new shapes: YOLOv8m-pose at 640x640
+    (silu) and TrackNet's subpixel skip convs (identity epilogue), at the
+    fused chunk of 16 and, for TrackNet, at the 2 windows a chunk of the
+    nonoverlap mode; each against its plain version, timed beside cuDNN and
+    its bound. Returns the sums of one fast chunk's launches at each stride."""
+    pose640 = k1_call_shapes(YOLOv8("m", 1, 13), *POSE640_HW)
+    check(len(pose640) == 58, f"K1 call sites of pose @640: {len(pose640)}")
+    detect = k1_call_shapes(YOLOv8("m", 1), *DETECT_HW)
+    sums = {}
+    for stride, tn_batch in ((1, FUSED_CHUNK), (8, FUSED_CHUNK // 8)):
+        tn = _k1_calls(dev, timed, TRACKNET_SUBPIXEL_CALLS, tn_batch)
+        sums[f"tracknet_subpixel_b{tn_batch}"] = _k1_sum(
+            f"TrackNet subpixel (B={tn_batch})", tn, tn_batch)
+        det = _k1_calls(dev, timed, [(s, "silu") for s in detect], FUSED_CHUNK)
+        pose = _k1_calls(dev, timed, [(s, "silu") for s in pose640], FUSED_CHUNK)
+        if stride == 1:
+            sums["yolov8m_pose_640x640_b16"] = _k1_sum("YOLOv8m-pose @640x640", pose, FUSED_CHUNK)
+        sums[f"fast_chunk_stride{stride}"] = _k1_sum(
+            f"one fast chunk at ball stride {stride} (TrackNet subpixel at B={tn_batch} + "
+            f"detect + pose @640 at B={FUSED_CHUNK})", tn + det + pose, FUSED_CHUNK)
+    print(f"K1 at the fast configuration's new shapes checked and timed: pose @640's "
+          f"{len(set(pose640))} distinct at B={FUSED_CHUNK}, the {len(SUBPIXEL_SKIP_CONVS)} "
+          f"subpixel skip convs at B={FUSED_CHUNK} and B={FUSED_CHUNK // 8}")
+    k1["max_abs_err"] = max(v["max_err"] for v in timed.values())
+    return sums
+
+
+def _pass_ratio(R: np.ndarray) -> float:
+    """Dense MACs over banded MACs of one pass (the gate's ratio)."""
+    _, w, n_tiles, band = resize._band_plan(R, resize.BAND_TILE)
+    return R.shape[0] * R.shape[1] / (band * n_tiles * w.shape[1])
+
+
+def phase_banded(dev, frames) -> None:
+    """Each resize pass of the fused plans (from 1080p and from the 960x540
+    wire) with its form and MAC ratio; every banded one against the dense
+    form on the card over a chunk of real frames: the uint8 results equal,
+    or one step apart where fp32 summation order moves a value across a .5
+    boundary (counted); both forms timed."""
+    wire = (540, 960)
+    plans = [(src, dst, m) for src in ((1080, 1920), wire) for dst, m in (
+        ((1280, 1280), "pil_bicubic"), ((640, 640), "pil_bicubic"), ((288, 512), "pil_bicubic"),
+        ((360, 640), "cv2_linear"))]
+    x_src = torch.from_numpy(np.stack(frames[:FUSED_CHUNK])).to(dev)
+    x_wire = torch.from_numpy(np.stack([resize_area(f, wire)
+                                        for f in frames[:FUSED_CHUNK]])).to(dev)
+    for src, dst, method in plans:
+        plan = resize.resize_plan(src, dst, method)
+        forms = plan.forms()
+        print(f"resize {src[1]}x{src[0]} -> {dst[1]}x{dst[0]} {method}: " + ", ".join(
+            f"{axis} pass {form} (dense/banded MACs {_pass_ratio(R):.2f})"
+            for axis, R, form in (("W", plan.r_w, forms[0]), ("H", plan.r_h, forms[1]))))
+        if "banded" not in forms:
+            continue
+        x = x_src if src == (1080, 1920) else x_wire
+        got = plan.apply(x)
+        want = plan.apply(x, banded=False)
+        torch.cuda.synchronize()
+        off = (torch.floor(got + 0.5).clamp(0, 255) - torch.floor(want + 0.5).clamp(0, 255)).abs()
+        moved = int((off > 0).sum())
+        check(float(off.max()) <= 1.0 and moved <= off.numel() // 1000,
+              f"banded resize {src} -> {dst}: {moved} values moved, max {float(off.max())}")
+        banded_ms = cuda_time_ms(lambda: plan.apply(x), reps=5)
+        dense_ms = cuda_time_ms(lambda: plan.apply(x, banded=False), reps=5)
+        print(f"  banded against dense on the card, B={FUSED_CHUNK}: {moved} of {off.numel()} "
+              f"uint8 values one step apart (a .5 boundary), none further; banded "
+              f"{banded_ms:.3f} ms, dense {dense_ms:.3f} ms")
+
+
+def _median_ms(fn, reps: int = 9) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_area(frames) -> None:
+    """The host's INTER_AREA against cv2 where OpenCV imports (bit-equal:
+    1080p and 720p frames to the 960x540 wire, and the float32 median), and
+    the derived ingest's host pack timed: INTER_AREA and the I420 pack
+    apart, on one thread (medians of 9) and over a chunk on the pack pool
+    (ms a frame), beside the full-resolution I420 pack."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    wire = (540, 960)
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is None:
+        print("INTER_AREA against cv2: OpenCV absent here (held against cv2 on the CPU host by "
+              "tests/test_torch_area.py)")
+    else:
+        rng = np.random.default_rng(13)
+        small = [np.ascontiguousarray(f[180:900, 320:1600]) for f in frames[:2]]
+        median = (frames[0].astype(np.float32) + frames[1]) / 2
+        cases = ([(f, wire) for f in frames[:4]] + [(f, wire) for f in small]
+                 + [(median, wire), (median[:720, :1280].copy(), wire),
+                    (rng.integers(0, 256, (97, 129, 3), dtype=np.uint8), (48, 64))])
+        for img, dst in cases:
+            want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_AREA)
+            check(np.array_equal(resize_area(img, dst), want),
+                  f"INTER_AREA {img.shape} {img.dtype} -> {dst} differs from cv2")
+        print(f"INTER_AREA bit-equal to OpenCV {cv2.__version__} on {len(cases)} cases (1080p and "
+              "720p uint8 frames and float32 medians to 960x540, an odd 129x97)")
+    frame = frames[0]
+    planes = resize_area_planes(frame, wire).copy()
+    i420 = np.empty((wire[0] * 3 // 2, wire[1]), np.uint8)
+    one = {"INTER_AREA": _median_ms(lambda: resize_area_planes(frame, wire)),
+           "I420 at 960x540": _median_ms(lambda: planes_to_i420(planes, i420)),
+           "I420 at 1920x1080": _median_ms(lambda: rgb_to_i420(frame))}
+    chunk = frames[:FUSED_CHUNK]
+    outs = np.empty((len(chunk),) + i420.shape, np.uint8)
+    full = np.empty((len(chunk), 1620, 1920), np.uint8)
+    jobs = {"INTER_AREA": lambda i: resize_area_planes(chunk[i], wire),
+            "INTER_AREA + I420 (the derived pack)":
+                lambda i: planes_to_i420(resize_area_planes(chunk[i], wire), outs[i]),
+            "I420 at 1920x1080": lambda i: rgb_to_i420(chunk[i], out=full[i])}
+    pool_ms = {}
+    with ThreadPoolExecutor(PACK_THREADS) as pool:
+        for name, job in jobs.items():
+            pool_ms[name] = _median_ms(
+                lambda: list(pool.map(job, range(len(chunk)))), reps=5) / len(chunk)
+    print("host pack, one thread (ms a frame): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in one.items()) + f"; on {PACK_THREADS} threads over a chunk "
+          f"of {len(chunk)} (ms a frame): " + ", ".join(f"{k} {v:.3f}" for k, v in pool_ms.items()))
+
+
+def decisive_fast_clip(n: int, seed: int) -> list[np.ndarray]:
+    """1920x1080 decisive_clip for the derived ingest: three red figures and
+    a bright square ball whose every edge lies 3-5 px inside an 8x8 cell of
+    both model inputs (the 384x640 letterbox, x/3 and y/3 + 12, and the
+    640x640 pose squash, x/3 and y/1.6875), moving 24 px (one detector cell)
+    a frame. Resampling blurs an edge by at most 2 model pixels on either
+    path, so no cell's maximum crosses the fakes' threshold between the rgb
+    and the derived input."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        f = rng.integers(20, 30, (1080, 1920, 3), dtype=np.uint8)
+        for (y0, y1), x0, vx in (((47, 264), 60, 24), ((290, 507), 1692, -24),
+                                 ((817, 1033), 252, 24)):
+            x = x0 + vx * i
+            f[y0:y1, x: x + 72] = (250, 60, 60)
+        x = 108 + 24 * i
+        f[574:600, x: x + 24] = (235, 240, 80)
+        frames.append(f)
+    return frames
+
+
+def phase_fast_decisive() -> None:
+    """Decisive fakes at 1080p, chunk 16, pose at 640: the derived run's det
+    boxes and pose keypoints equal the rgb run's within 1e-2 px (letterboxing
+    the wire and scaling back is the affine map of letterboxing the source);
+    the nonoverlap caches equal the stride-1 caches (each heatmap channel of
+    the fake depends on its own frame alone)."""
+    n = 45
+    frames = decisive_fast_clip(n, seed=12)
+    runs = {}
+    for name, kw in (("rgb", {"ingest": "rgb"}),
+                     ("derived", {"ingest": "derived", "wire_long_side": WIRE_LONG_SIDE}),
+                     ("derived stride 8", {"ingest": "derived", "wire_long_side": WIRE_LONG_SIDE,
+                                           "ball_stride": 8})):
+        pipe = FusedPipeline(*_fake_trackers(n, pose_size=640), chunk=FUSED_CHUNK, **kw)
+        runs[name] = pipe.run(iter(frames), n)
+        check(pipe.ingest == kw["ingest"], f"decisive fast {name}: ingest {pipe.ingest}")
+    boxes = poses = 0
+    for f in range(n):
+        a, b = runs["rgb"]["players"][f], runs["derived"]["players"][f]
+        check(len(a) == len(b), f"decisive fast: frame {f} boxes {len(a)} vs {len(b)}")
+        for pa, pb in zip(a, b):
+            check(np.allclose(pa.xyxy, pb.xyxy, atol=1e-2) and pa.id == pb.id,
+                  f"decisive fast: frame {f} box {pa.xyxy} vs {pb.xyxy}")
+            boxes += 1
+        ka, kb = runs["rgb"]["players_keypoints"][f], runs["derived"]["players_keypoints"][f]
+        check(len(ka) == len(kb), f"decisive fast: frame {f} poses {len(ka)} vs {len(kb)}")
+        for pka, pkb in zip(ka, kb):
+            check(all(np.allclose(qa.xy, qb.xy, atol=1e-2) for qa, qb in zip(pka, pkb)),
+                  f"decisive fast: frame {f} keypoints differ")
+            poses += 1
+    check(boxes > 0 and poses > 0, "decisive fast: nothing detected")
+    for key in ("players", "players_keypoints", "ball", "keypoints"):
+        got = _json(runs["derived stride 8"][key])
+        check(got == _json(runs["derived"][key]),
+              f"decisive fast: nonoverlap {key} differs from stride 1")
+    visible = sum(b.visibility for b in runs["derived"]["ball"])
+    check(visible > 0, "decisive fast: no visible ball")
+    print(f"fast decisive check: {n} frames 1920x1080, chunk {FUSED_CHUNK}, pose @640: derived "
+          f"(wire 960x540) boxes and keypoints within 1e-2 px of rgb ({boxes} boxes, {poses} "
+          f"poses); ball_stride 8 caches equal to stride 1 ({visible} visible balls)")
+
+
+def phase_fast(frames, smi: str) -> dict:
+    """The fast configuration through TrackingRunner(fused=True,
+    fused_ingest="derived", fused_wire_long_side=960) at full width, at ball
+    stride 1 and 8. Returns each stride's launch counts of its first pass."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    real_chunks = -(-n // FUSED_CHUNK)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trackers = fast_trackers(Path(tmp))
+        players, pose, ball, court = trackers
+        calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in (players, pose)}
+        for stride in (1, 8):
+            chunks = -(-(n + (7 if stride == 1 else 0)) // FUSED_CHUNK)
+            runner = TrackingRunner(list(trackers), clip, tmp, fused=True,
+                                    fused_chunk=FUSED_CHUNK, fused_ingest="derived",
+                                    fused_wire_long_side=WIRE_LONG_SIDE,
+                                    fused_ball_stride=stride, render=False, collect_data=False)
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first_s = _fused_pass(runner, trackers)
+            counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            want_k1 = 110 * real_chunks + 17 * chunks
+            check(counts == {"conv3x3_bn_act": want_k1, "heatmap_cc": chunks},
+                  f"fast stride {stride}: launches {counts}, want K1 {want_k1}, K2 {chunks}")
+            check(runner._fused_pipeline.ingest == "derived", "fast: the ingest fell back")
+            for t in trackers:
+                check(len(t.results) == n, f"fast stride {stride} {t}: {len(t.results)} results")
+            found = (f"{_check_players(players.results)}; {_check_pose(pose.results)}; "
+                     f"{sum(b.visibility for b in ball.results)} visible balls")
+            check(all(0 <= b.xy[0] < 1920 and 0 <= b.xy[1] < 1080 for b in ball.results),
+                  f"fast stride {stride}: ball outside the frame")
+            first = [_json(t.results) for t in trackers]
+            second_s = _fused_pass(runner, trackers)
+            check([_json(t.results) for t in trackers] == first,
+                  f"fast stride {stride}: second pass differs")
+            print(f"fast stride {stride} ({smi}): {n} frames 1920x1080, derived wire 960x540, "
+                  f"pose @640, TrackNet subpixel, chunk {FUSED_CHUNK}, {found}; first pass "
+                  f"{n / first_s:.1f} frames/s, second pass {n / second_s:.1f} frames/s; peak "
+                  f"device memory {peak_gib:.2f} GiB; launches {counts}")
+            split = FusedPipeline(players, pose, ball, court, chunk=FUSED_CHUNK, ingest="derived",
+                                  wire_long_side=WIRE_LONG_SIDE, ball_stride=stride
+                                  ).measure_device_split(iter(frames), n, n_chunks=4)
+            per_chunk = {k: split[k] / 4 * 1e3 for k in ("upload_s", "det_s", "pose_s", "ball_s")}
+            print(f"fast stride {stride} device split, ms a chunk of {FUSED_CHUNK}: " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in per_chunk.items())
+                  + f"; sub-steps {split['device_ms_per_frame']:.3f} ms a frame "
+                    f"({split['device_fps']:.1f} frames/s); host pack "
+                    f"{split['pack_s'] / split['frames'] * 1e3:.3f} ms a frame")
+            runner.restart()
+            prof = profile_run(runner.run, f"fast stride {stride}",
+                               (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")), top_n=8,
+                               chunks=chunks, gaps=3)
+            out[f"fast_stride{stride}"] = {**counts, "chunks": chunks,
+                                           "device_ms": prof.get("kernel_ms", {})}
+        print(f"fast cls calibration: {calib}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
     dev = torch.device("cuda", 0)
     smi = phase_report()
     phase_build()
-    k1 = phase_k1(dev)
+    timed: dict = {}
+    k1 = phase_k1(dev, timed)
+    k1["sums"]["fast"] = phase_fast_k1(dev, timed, k1)
     k2 = phase_k2(dev)
     phase_model(dev)
     by_path = {"ball": phase_slice()}
@@ -1272,6 +1631,19 @@ def main() -> None:
     phase_collect_decisive()
     by_path["collect"] = phase_collect(synthetic_players(128, seed=9), smi)
     by_path["cli"] = phase_cli()
+    fast_frames = synthetic_players(128, seed=9)
+    phase_banded(dev, fast_frames)
+    phase_area(fast_frames)
+    phase_fast_decisive()
+    fast = phase_fast(fast_frames, smi)
+    by_path.update({k: {name: v[name] for name in ("conv3x3_bn_act", "heatmap_cc")}
+                    for k, v in fast.items()})
+    # Device ms a chunk from the profiled fast passes; null where the
+    # profiler saw no launch of the kernel (not measured, never 0).
+    for k, name in ((k1, "K1"), (k2, "K2")):
+        k["fast_device_ms_a_chunk"] = {
+            p: v["device_ms"][name] / v["chunks"] if name in v["device_ms"] else None
+            for p, v in fast.items()}
     # The main path is the fused pipeline with the collect pass: its
     # launches are the kernels'.
     for k, name in ((k1, "conv3x3_bn_act"), (k2, "heatmap_cc")):

@@ -98,6 +98,16 @@ class BallTrackerConfig:
     height: int = 288
     width: int = 512
     eval_mode: str = "weight"  # temporal ensemble weighting
+    # The exact low-resolution rewrite of the up blocks' first convs
+    # (models/tracknet.py `_SubpixelUpConvBN`): the same checkpoints, the
+    # same outputs up to summation order, fewer MACs. Inference only. Not a
+    # fast option on the H100: there the ball sub-step runs slower than
+    # with the dense model (its up-part sum and BN run outside K1; PERF.md).
+    subpixel_up: bool = False
+    # 1: the reference's stride-1 rolling ensemble. seq_len: each window
+    # evaluated once (about seq_len times less TrackNet work, no temporal
+    # ensemble; an opt-in trade with no reference equivalent).
+    window_stride: int = 1
     load_path: Optional[str] = None
     save_path: Optional[str] = None
 

@@ -77,12 +77,21 @@ def rgb_to_i420(rgb: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray
     keeps its own scratch planes."""
     h, w, _ = rgb.shape
     _check_even(h, w)
-    if out is None:
-        out = np.empty((h * 3 // 2, w), np.uint8)
-    planes, acc, tmp, cacc, ctmp = _scratch(h, w)
+    planes = _scratch(h, w)[0]
     # Planes first: products over contiguous planes run ~3x faster than over
     # the interleaved channels.
     np.copyto(planes, rgb.transpose(2, 0, 1))
+    return planes_to_i420(planes, out)
+
+
+def planes_to_i420(planes: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """`rgb_to_i420` of a frame given as its (3, H, W) uint8 R, G and B
+    planes."""
+    _, h, w = planes.shape
+    _check_even(h, w)
+    if out is None:
+        out = np.empty((h * 3 // 2, w), np.uint8)
+    _, acc, tmp, cacc, ctmp = _scratch(h, w)
     r, g, b = planes
     # Every sum stays inside int32 and lands in [16, 240] after the shift,
     # so no clamp is needed (OpenCV's saturate_cast never bites).

@@ -14,11 +14,18 @@ precomputed interpolation-weight matrices:
   edge clamp, no antialias), the resize inside ultralytics' letterbox; no
   intermediate quantisation.
 
-`apply` runs both passes as dense fp32 matmuls with TF32 off: TF32 keeps
-~10 mantissa bits and would move results by whole intensity steps. The
-block-banded form of the JAX package is not ported yet; at 1080p the JAX
-package takes the dense form for both letterbox passes too (their MAC
-ratios, 5.0 and 2.6, do not clear its strict > 5 gate).
+`apply` runs each pass as fp32 matmuls with TF32 off (TF32 keeps ~10
+mantissa bits and would move results by whole intensity steps), in one of
+two forms, chosen per pass exactly as the JAX package chooses:
+
+- dense: the whole (dst, src) matrix;
+- block-banded (`_band_plan`): the dst axis in tiles of 128 rows, each
+  multiplying only the source band that holds its rows' taps, gathered
+  from the image and run as one batched matmul. The same per-row tap
+  products; taken where the dense pass does more than 5x the banded MACs
+  and the axis holds more than one tile (the pose squash's passes from
+  1080p). At 1080p both letterbox passes (ratios 5.0 and 2.6) and the
+  ball resize stay dense.
 """
 
 from __future__ import annotations
@@ -120,47 +127,144 @@ def cv2_bilinear_matrix(src: int, dst: int) -> np.ndarray:
     return rows.astype(np.float32)
 
 
+#: The block-banded form's tile of dst rows, and its gate: banded only where
+#: the dense pass does more than BAND_MIN_RATIO times the banded MACs (the
+#: JAX package's defaults, `ResizePlan.apply`).
+BAND_TILE = 128
+BAND_MIN_RATIO = 5.0
+
+
+def _band_plan(R: np.ndarray, tile: int):
+    """Tile the dst axis of a (dst, src) resample matrix into blocks of
+    `tile` rows and extract, per block, the contiguous src band that holds
+    every nonzero tap of its rows. Returns (starts, W, n_tiles, B): `W[t]`
+    is the (tile, B) dense sub-matrix such that
+    ``out[t*tile:(t+1)*tile] = W[t] @ x[starts[t]:starts[t]+B]``; the band
+    width B is uniform, a multiple of 8 and at most src, and each start is
+    clamped so its band lies inside src (the JAX package's plan, unchanged)."""
+    dst, src = R.shape
+    nz = R != 0.0
+    any_nz = nz.any(axis=1)
+    lo = np.where(any_nz, nz.argmax(axis=1), 0)
+    hi = np.where(any_nz, src - nz[:, ::-1].argmax(axis=1), 1)
+    n_tiles = -(-dst // tile)
+    starts, widths = [], []
+    for t in range(n_tiles):
+        r0, r1 = t * tile, min((t + 1) * tile, dst)
+        s, e = int(lo[r0:r1].min()), int(hi[r0:r1].max())
+        starts.append(s)
+        widths.append(e - s)
+    B = min(src, -(-max(widths) // 8) * 8)
+    starts = [max(0, min(s, src - B)) for s in starts]
+    W = np.zeros((n_tiles, tile, B), dtype=R.dtype)
+    for t, s in enumerate(starts):
+        r0, r1 = t * tile, min((t + 1) * tile, dst)
+        W[t, : r1 - r0, :] = R[r0:r1, s: s + B]
+    return np.asarray(starts), W, n_tiles, B
+
+
+def takes_band(R: np.ndarray, band_plan, min_ratio: float = BAND_MIN_RATIO) -> bool:
+    """Whether a pass over the (dst, src) matrix R with this `_band_plan`
+    runs block-banded: its dense MACs exceed `min_ratio` times the banded
+    ones and its dst axis holds more than one tile (the JAX package's gate,
+    unchanged)."""
+    dst, src = R.shape
+    _, W, n_tiles, B = band_plan
+    return dst * src > min_ratio * (B * n_tiles * W.shape[1]) and n_tiles > 1
+
+
 @dataclass(frozen=True)
 class ResizePlan:
-    """Precomputed separable resize; `apply` runs as two matmuls."""
+    """Precomputed separable resize; `apply` runs as two matmul passes."""
 
     r_h: np.ndarray  # (dst_h, src_h)
     r_w: np.ndarray  # (dst_w, src_w)
     quantize_intermediate: bool = False
-    # The fp32 matrices on each device they were used on: uploaded once per
-    # device, not per call (a pageable upload blocks the host; ~15 MB for a
-    # 1080p -> 1280x1280 squash).
-    _on_device: dict = field(default_factory=dict, init=False, repr=False, compare=False,
-                             hash=False)
+    # Each pass's band plans, and its operands on each device and form they
+    # were used in: uploaded once, not per call (a pageable upload blocks
+    # the host; ~15 MB for the dense 1080p -> 1280x1280 squash).
+    _cache: dict = field(default_factory=dict, init=False, repr=False, compare=False,
+                         hash=False)
 
     @property
     def dst_hw(self) -> tuple[int, int]:
         return (self.r_h.shape[0], self.r_w.shape[0])
 
-    def device_matrices(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(r_h, r_w) as fp32 tensors on `device`, uploaded on first use."""
+    def _passes(self):
+        return (("w", self.r_w), ("h", self.r_h))
+
+    def band_plan(self, axis: str, tile: int = BAND_TILE):
+        """`_band_plan` of the horizontal ('w') or vertical ('h') pass."""
+        key = ("band", axis, tile)
+        if key not in self._cache:
+            self._cache[key] = _band_plan(dict(self._passes())[axis], tile)
+        return self._cache[key]
+
+    def forms(self, banded: bool = True, tile: int = BAND_TILE,
+              min_ratio: float = BAND_MIN_RATIO) -> tuple[str, ...]:
+        """('dense' or 'banded') of the horizontal pass, then the vertical."""
+        return tuple(
+            "banded" if banded and takes_band(R, self.band_plan(axis, tile), min_ratio)
+            else "dense" for axis, R in self._passes())
+
+    def upload(self, device: torch.device, banded: bool = True, tile: int = BAND_TILE,
+               min_ratio: float = BAND_MIN_RATIO) -> tuple[tuple, ...]:
+        """The horizontal and the vertical pass's operands on `device`, each
+        uploaded on its first use: ('dense', R) with R (dst, src) fp32, or
+        ('banded', index, W, dst) with the bands' source indices (n_tiles *
+        B,) int64 and W (n_tiles, tile, B) fp32."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        mats = self._on_device.get(device)
-        if mats is None:
-            mats = tuple(torch.as_tensor(m, dtype=torch.float32, device=device)
-                         for m in (self.r_h, self.r_w))
-            self._on_device[device] = mats
-        return mats
+        ops = []
+        for (axis, R), form in zip(self._passes(), self.forms(banded, tile, min_ratio)):
+            key = (device, axis, form, tile if form == "banded" else None)
+            op = self._cache.get(key)
+            if op is None:
+                if form == "dense":
+                    op = ("dense", torch.as_tensor(R, dtype=torch.float32, device=device))
+                else:
+                    starts, W, _, B = self.band_plan(axis, tile)
+                    index = (starts[:, None] + np.arange(B)).reshape(-1)
+                    op = ("banded", torch.as_tensor(index, dtype=torch.int64, device=device),
+                          torch.as_tensor(W, dtype=torch.float32, device=device), R.shape[0])
+                self._cache[key] = op
+            ops.append(op)
+        return tuple(ops)
 
-    def apply(self, images: torch.Tensor) -> torch.Tensor:
+    def apply(self, images: torch.Tensor, banded: bool = True, tile: int = BAND_TILE,
+              min_ratio: float = BAND_MIN_RATIO) -> torch.Tensor:
         """Resize a (..., H, W, C) stack to (..., H', W', C) fp32: the
         horizontal pass, Pillow's uint8 clip of the intermediate where the
-        plan quantises, then the vertical pass."""
+        plan quantises, then the vertical pass; each dense or banded as
+        `forms` says."""
         x = images.float()
-        r_h, r_w = self.device_matrices(x.device)
+        op_w, op_h = self.upload(x.device, banded, tile, min_ratio)
         with no_tf32():
-            x = torch.einsum("...hwc,pw->...hpc", x, r_w)
+            x = _pass(x, op_w, -2)
             if self.quantize_intermediate:
                 # Pillow's clip8: round half up, clamp to uint8.
                 x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
-            return torch.einsum("...hwc,oh->...owc", x, r_h)
+            return _pass(x, op_h, -3)
+
+
+def _pass(x: torch.Tensor, op: tuple, axis: int) -> torch.Tensor:
+    """One resampling pass contracting `axis` (-2: W, -3: H) of a
+    (..., H, W, C) stack with a pass's operands (`ResizePlan.upload`)."""
+    if op[0] == "dense":
+        if axis == -2:
+            return torch.einsum("...hwc,pw->...hpc", x, op[1])
+        return torch.einsum("...hwc,oh->...owc", x, op[1])
+    _, index, wt, dst = op
+    n, tile, band = wt.shape
+    dim = x.dim() + axis
+    lead, rest = x.shape[:dim], x.shape[dim + 1:]
+    bands = x.index_select(dim, index).reshape(lead + (n, band) + rest)
+    if axis == -2:
+        out = torch.einsum("...nbc,ntb->...ntc", bands, wt)
+    else:
+        out = torch.einsum("...nbwc,ntb->...ntwc", bands, wt)
+    return out.reshape(lead + (n * tile,) + rest).narrow(dim, 0, dst)
 
 
 @functools.lru_cache(maxsize=64)

@@ -5,7 +5,9 @@ Counterpart of ``padel_analytics_tpu/trackers/ball.py``, with the
 reference's behaviour:
 
 - 512x288 input, seq_len 8, stride-1 sliding windows, median background
-  over the first <= median_max_sample_num frames;
+  over the first <= median_max_sample_num frames (or, with
+  `window_stride=seq_len`, each window evaluated once: no ensemble, no lag,
+  the last partial window zero-padded; an opt-in fast mode);
 - triangular temporal ensemble with uniform head/tail averaging;
 - heatmap -> coordinate decode with cv2-contour semantics (kernel K2 on
   CUDA), every stride-1 3x3 ConvBN of TrackNet through kernel K1 on CUDA;
@@ -19,8 +21,8 @@ TrackNet channel-swapped relative to the rest. `channel_quirk=True`
 Each decoded frame is resized once on the device; windows are assembled on
 the device from a carried frame context; TrackNet, the rolling ensemble
 (carried heatmap buffer) and the decode run per chunk of frames, so only
-(x, y, visibility) come back to the host. Not ported yet: InpaintNet, the
-multi-device path and window_stride=seq_len.
+(x, y, visibility) come back to the host. Not ported yet: InpaintNet and
+the multi-device path.
 """
 
 from __future__ import annotations
@@ -77,6 +79,8 @@ class BallTracker(Tracker):
     ):
         super().__init__(load_path=load_path, save_path=save_path)
         self.bg_mode = "concat"
+        self.subpixel_up = False
+        self.window_stride = 1
         if config is not None:
             tracking_model_path = config.tracking_model_path or tracking_model_path
             inpainting_model_path = config.inpainting_model_path or inpainting_model_path
@@ -87,6 +91,11 @@ class BallTracker(Tracker):
             self.EVAL_MODE = config.eval_mode
             self.TRAJECTORY_LENGTH = config.seq_len
             self.bg_mode = config.bg_mode
+            self.subpixel_up = config.subpixel_up
+            if config.window_stride not in (1, config.seq_len):
+                raise ValueError(f"window_stride must be 1 or seq_len={config.seq_len}, "
+                                 f"got {config.window_stride}")
+            self.window_stride = config.window_stride
         if inpainting_model_path:
             raise NotImplementedError(
                 "InpaintNet is not ported yet (ROADMAP.md Queue 1: InpaintNet)"
@@ -120,7 +129,8 @@ class BallTracker(Tracker):
                 )
         if self.bg_mode not in ("", "subtract", "subtract_concat", "concat"):
             raise ValueError(f"unknown bg_mode {self.bg_mode!r}")
-        model, self.tracknet_in_dim = make_tracknet(self.tracknet_seq_len, self.bg_mode)
+        model, self.tracknet_in_dim = make_tracknet(self.tracknet_seq_len, self.bg_mode,
+                                                    self.subpixel_up)
         if state_dict is None:
             lecun_normal_(model, torch.Generator().manual_seed(seed))
         self.tracknet = Engine(model, self.device, state_dict)
@@ -161,6 +171,24 @@ class BallTracker(Tracker):
         )
         cx, cy, vis = decode_heatmaps(ens)
         return cx, cy, vis, frames_ext[-(seq_len - 1):], buf[-(seq_len - 1):]
+
+    def _nonoverlap_step(self, frames_u8, median_u8):
+        """One chunk in the nonoverlap mode (window_stride = seq_len): the
+        chunk's B frames (B a multiple of seq_len) form B / seq_len disjoint
+        windows, each run once; window i's output channel j is frame
+        i * seq_len + j's heatmap. No ensemble, no carry. Returns (cx, cy,
+        vis), one row a frame."""
+        seq_len = self.tracknet_seq_len
+        b = frames_u8.shape[0]
+        nwin = b // seq_len
+        fr = frames_u8.float().reshape((nwin, seq_len) + tuple(frames_u8.shape[1:]))
+        parts = [fr[:, j] for j in range(seq_len)]
+        if self.bg_mode == "concat":
+            parts = [median_u8.float()[None].expand((nwin,) + tuple(median_u8.shape))] + parts
+        x = torch.cat(parts, dim=-1) / 255.0
+        y = self.tracknet.model(x.to(self.compute_dtype))  # (nwin, H, W, L)
+        heat = y.permute(0, 3, 1, 2).float().reshape((b,) + tuple(y.shape[1:3]))
+        return decode_heatmaps(heat)
 
     # ------------------------------------------------------------------
 
@@ -212,9 +240,46 @@ class BallTracker(Tracker):
             row[:] = get_ensemble_weight(seq_len, self.EVAL_MODE)
         return row
 
+    def _window_loop_nonoverlap(self, resized_iter):
+        """Chunked nonoverlap TrackNet + decode (window_stride = seq_len):
+        chunk k emits its own frames, with no lag and no coefficient table;
+        the chunk is the batch size rounded up to a multiple of seq_len, and
+        the last partial window sees zero frames. Returns (xs, ys, vs,
+        video_len)."""
+        seq_len = self.tracknet_seq_len
+        chunk = -(-max(self.batch_size, 1) // seq_len) * seq_len
+        first = next(resized_iter, None)
+        if first is None:
+            return [], [], [], 0
+        median_dev = torch.from_numpy(self._median_resized).to(first.device)
+        pending = [first]
+        xs: list[int] = []
+        ys: list[int] = []
+        vs: list[int] = []
+        video_len = 0
+        exhausted = False
+        while pending or not exhausted:
+            while len(pending) < chunk and not exhausted:
+                nxt = next(resized_iter, None)
+                if nxt is None:
+                    exhausted = True
+                else:
+                    pending.append(nxt)
+            if not pending:
+                break
+            frames, pending = pending[:chunk], pending[chunk:]
+            arr, _ = pad_batch(torch.stack(frames), chunk)
+            out = torch.stack(self._nonoverlap_step(arr, median_dev)).cpu().numpy()
+            xs += out[0, :len(frames)].tolist()
+            ys += out[1, :len(frames)].tolist()
+            vs += out[2, :len(frames)].tolist()
+            video_len += len(frames)
+        return xs, ys, vs, video_len
+
     def _window_loop(self, resized_iter):
         """Chunked TrackNet + ensemble + decode over an iterator of resized
-        frames (device tensors).
+        frames (device tensors); `_window_loop_nonoverlap` where
+        window_stride = seq_len.
 
         The clip is zero-extended by seq_len-1 frames so that every output
         frame (head, body and tail) is emitted by one uniform chunk loop;
@@ -222,6 +287,8 @@ class BallTracker(Tracker):
 
         Returns (xs, ys, vs, video_len). Requires `self._median_resized`
         to be set by the iterator before (or at) its first yield."""
+        if self.window_stride != 1:
+            return self._window_loop_nonoverlap(resized_iter)
         seq_len = self.tracknet_seq_len
         chunk = max(self.batch_size, 1)
         video_len: Optional[int] = None

@@ -4,8 +4,11 @@ sub-steps on three CUDA streams sharing it.
 Counterpart of ``padel_analytics_tpu/trackers/fused.py`` (`FusedPipeline.run`
 and `measure_device_split`). The per-tracker runner pays one decode, one
 upload and one serial pass per tracker; here each chunk is decoded once,
-packed on the host into a reused pinned staging slot (RGB, or I420 at half
-the bytes), copied to the device once, and consumed by:
+packed on the host into a reused pinned staging slot (RGB; I420 at half
+the bytes; or 'derived': an I420 buffer of the frame downscaled on the host
+by an INTER_AREA resize bit-equal to OpenCV's, to a long side of at most
+`wire_long_side`, a quarter of the 1080p pixels at 960), copied to the
+device once, and consumed by:
 
   frames (B, H, W, 3) uint8 on the device   [one H2D copy, copy stream]
     ├── det  (stream): letterbox -> YOLOv8 -> NMS candidates  ┐ each ends in
@@ -23,16 +26,23 @@ step between the upload and the drain synchronises the host: the ensemble
 coefficients and the channel-quirk flags live on the device for the whole
 run and are sliced by the chunk's first frame.
 
+Every model input is derived on the device from the uploaded (wire)
+frames; the det boxes are mapped from wire to source pixels on the host, the
+pose keypoints from model space to source pixels directly.
+
 Ball alignment: after chunk k (frames [kB, kB+B)), the windows completed
 are those ending inside the chunk, and the frames emitted are
 f = kB-(L-1)+j; the clip is zero-extended by L-1 frames so the tail flushes
 through the same uniform loop (windows touching padding carry coefficient
 0). The caches equal the per-tracker paths' byte for byte
-(tests/test_torch_fused.py).
+(tests/test_torch_fused.py). With ball_stride=seq_len (nonoverlap) each
+window of seq_len chunk frames runs once and the chunk emits its own
+frames: no ensemble, no carry, no lag; the last partial window sees zero
+frames.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: the 'derived' ingest, ball_stride=seq_len, association='device', a
-model-based court, `run_staged` and `run_mesh`.
+item: association='device', a model-based court, `run_staged` and
+`run_mesh`.
 """
 
 from __future__ import annotations
@@ -45,7 +55,8 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.color import i420_to_rgb, rgb_to_i420
+from ..ops.area import resize_area, resize_area_planes
+from ..ops.color import i420_to_rgb, planes_to_i420, rgb_to_i420
 from ..ops.ensemble import overlap_ensemble_coefficients
 from ..ops.packing import Layout, pack_rows, unpack_rows
 from ..ops.resize import letterbox_plan, resize_plan
@@ -261,9 +272,10 @@ class FusedPipeline:
         chunk: int = 16,
         ingest: str = "rgb",
         association: str = "auto",
+        wire_long_side: int = 960,
         ball_stride: int = 1,
     ):
-        self.check_options(ingest, association, ball_stride)
+        self.check_options(ingest, association, ball_stride, ball.tracknet_seq_len, chunk)
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         devices = {torch.device(t.device) for t in (players, pose, ball)}
@@ -282,55 +294,69 @@ class FusedPipeline:
         # 'i420': frames cross the host->device link as I420 planes (1.5
         # bytes a pixel against RGB's 3), rebuilt on the device bit-exactly
         # to cv2's I420->RGB; the only deviation from 'rgb' is the chroma
-        # subsampling round trip.
+        # subsampling round trip. 'derived': the same at the wire
+        # resolution (`_wire`); the outputs also move by the resample chain.
         self.ingest = ingest
         self._ingest_pref = ingest
+        self.wire_long_side = int(wire_long_side)
+        # 1: the reference's stride-1 rolling ensemble; seq_len: nonoverlap.
+        self.ball_stride = ball_stride
         self.device = devices.pop()
         self.lanes = Lanes(self.device)
         self._step_cache: dict = {}
         self._rings: dict = {}
 
     @staticmethod
-    def check_options(ingest: str, association: str = "auto", ball_stride: int = 1) -> None:
+    def check_options(ingest: str, association: str = "auto", ball_stride: int = 1,
+                      seq_len: Optional[int] = None, chunk: Optional[int] = None) -> None:
         """Refuse unknown options (ValueError) and those not ported yet
         (NotImplementedError, naming their ROADMAP.md item). Of association
-        and ball_stride only one behaviour is ported, so neither is kept:
-        'auto' and 'host' both mean host ByteTrack at the drain (exact
-        parity), and stride 1 is the reference's rolling ensemble."""
+        only one behaviour is ported, so it is not kept: 'auto' and 'host'
+        both mean host ByteTrack at the drain (exact parity). ball_stride is
+        1 or, with `chunk` a multiple of it, the ball tracker's `seq_len`
+        (checked where they are given)."""
         if ingest not in ("rgb", "i420", "derived"):
             raise ValueError(f"unknown ingest {ingest!r}")
-        if ingest == "derived":
-            raise NotImplementedError(
-                "the 'derived' ingest is not ported yet (ROADMAP.md Queue 1 item 4b: it needs "
-                "a host INTER_AREA resize without OpenCV)"
-            )
         if association not in ("host", "device", "auto"):
             raise ValueError(f"unknown association {association!r}")
         if association == "device":
             raise NotImplementedError(
                 "the device association scan is not ported yet (ROADMAP.md Queue 1 item 8)"
             )
-        if ball_stride != 1:
-            raise NotImplementedError(
-                f"ball_stride={ball_stride}: only the stride-1 rolling ensemble is ported; "
-                "ball_stride=seq_len (nonoverlap) is ROADMAP.md Queue 1 item 7"
-            )
+        if seq_len is not None and ball_stride not in (1, seq_len):
+            raise ValueError(f"ball_stride must be 1 (the reference's stride-1 ensemble) or "
+                             f"seq_len={seq_len} (nonoverlap), got {ball_stride}")
+        if ball_stride < 1:
+            raise ValueError(f"ball_stride must be >= 1, got {ball_stride}")
+        if ball_stride != 1 and chunk is not None and chunk % ball_stride:
+            raise ValueError(f"nonoverlap ball_stride needs chunk % seq_len == 0 "
+                             f"(chunk={chunk}, seq_len={ball_stride})")
 
     @property
     def _ball_off(self) -> int:
         """Frames of clip zero-extension and of ball-emit lag: seq_len - 1
-        under the stride-1 rolling ensemble."""
-        return self.ball.tracknet_seq_len - 1
+        under the stride-1 rolling ensemble, 0 in the nonoverlap mode (chunk
+        k's ball rows are its own frames)."""
+        return 0 if self.ball_stride != 1 else self.ball.tracknet_seq_len - 1
 
     def _wire(self, src_hw: tuple[int, int]):
         """((wire_h, wire_w), sx, sy): the on-the-wire frame resolution and
-        the wire->source coordinate scale. The identity: the 'derived'
-        ingest, which downscales on the host, is not ported."""
-        return tuple(src_hw), 1.0, 1.0
+        the wire->source coordinate scale. The identity but in the 'derived'
+        ingest, whose wire frame is the aspect-preserving downscale to a
+        long side of at most `wire_long_side`, rounded to even dimensions
+        (I420's chroma is 2x2-subsampled)."""
+        if self.ingest != "derived":
+            return tuple(src_hw), 1.0, 1.0
+        h, w = src_hw
+        scale = min(1.0, self.wire_long_side / max(h, w))
+        wh = max(2, int(round(h * scale / 2)) * 2)
+        ww = max(2, int(round(w * scale / 2)) * 2)
+        return (wh, ww), w / ww, h / wh
 
     def _ingest_decode(self, src_hw: tuple[int, int]):
-        """Raw uploaded chunk -> (B, H, W, 3) uint8 RGB frames on the device."""
-        if self.ingest == "i420":
+        """Raw uploaded chunk -> (B, H', W', 3) uint8 RGB frames on the
+        device, at the wire resolution (H', W')."""
+        if self.ingest in ("i420", "derived"):
             h = self._wire(src_hw)[0][0]
             return lambda buf: i420_to_rgb(buf, h, dtype=torch.uint8)
         return lambda frames: frames
@@ -339,7 +365,8 @@ class FusedPipeline:
         """Pick the run's wire format from the configured preference: I420
         needs even dimensions. Recomputed per run (not a one-way latch), so
         one odd-dimension clip does not downgrade every later run of a
-        cached pipeline to twice the ingest bytes."""
+        cached pipeline to twice the ingest bytes. 'derived' rounds its
+        wire dimensions to even, so it needs no fallback."""
         self.ingest = self._ingest_pref
         if self.ingest == "i420" and (src_hw[0] % 2 or src_hw[1] % 2):
             print(f"fused: {tuple(src_hw)} has odd dimensions; falling back to rgb ingest")
@@ -349,12 +376,12 @@ class FusedPipeline:
         """Bytes one frame costs on the host->device link in the current
         wire format."""
         (wh, ww), _, _ = self._wire(src_hw)
-        return wh * ww * 3 // 2 if self.ingest == "i420" else wh * ww * 3
+        return wh * ww * 3 // 2 if self.ingest in ("i420", "derived") else wh * ww * 3
 
     def _wire_shape(self, src_hw: tuple[int, int]) -> tuple[int, ...]:
         """Shape of one chunk on the wire."""
         (wh, ww), _, _ = self._wire(src_hw)
-        if self.ingest == "i420":
+        if self.ingest in ("i420", "derived"):
             return (self.chunk, wh * 3 // 2, ww)
         return (self.chunk, wh, ww, 3)
 
@@ -369,8 +396,14 @@ class FusedPipeline:
     def _pack_chunk(self, chunk_frames: list[np.ndarray], out: np.ndarray,
                     pool: ThreadPoolExecutor) -> np.ndarray:
         """Host-side chunk packing in the ingest's wire format, frame by
-        frame into `out` (a staging slot), on `pool`'s threads."""
-        if self.ingest == "i420":
+        frame into `out` (a staging slot), on `pool`'s threads. 'derived':
+        INTER_AREA to the wire resolution, then I420 from its planes."""
+        if self.ingest == "derived":
+            wire_hw = self._wire(chunk_frames[0].shape[:2])[0]
+
+            def pack(i):
+                planes_to_i420(resize_area_planes(chunk_frames[i], wire_hw), out=out[i])
+        elif self.ingest == "i420":
             def pack(i):
                 rgb_to_i420(chunk_frames[i], out=out[i])
         else:
@@ -393,8 +426,22 @@ class FusedPipeline:
     def _build_ball_step(self, src_hw: tuple[int, int]):
         b = self.chunk
         ball = self.ball
+        # 'derived': the resize to model resolution starts from the wire
+        # frames; the subtract modes' median is downscaled to the wire
+        # resolution on the host (_gather_setup) to match.
         pre = make_frame_preprocess(self._wire(src_hw)[0], (ball.HEIGHT, ball.WIDTH),
                                     ball.bg_mode)
+
+        if self.ball_stride != 1:
+            def ball_step_nonoverlap(frames, state: _BallState, lo: int, swap: bool):
+                # The chunk's own frames in windows of seq_len, each run
+                # once; the carries pass through, the coefficients unread.
+                flags = state.swap[lo: lo + b] if swap else None
+                resized = pre(frames, median_src=state.median_src, swap=flags)
+                cx, cy, vis = ball._nonoverlap_step(resized, state.median)
+                return pack_rows([torch.stack([cx, cy, vis], dim=-1)]), state
+
+            return ball_step_nonoverlap
 
         def ball_step(frames, state: _BallState, lo: int, swap: bool):
             # The chunk's rows of the run's coefficient table (row lo + j
@@ -414,9 +461,11 @@ class FusedPipeline:
 
     def _get_steps(self, src_hw: tuple[int, int]):
         """(decode, det, pose, ball) steps, cached per (resolution, chunk,
-        bg_mode, ingest). Uploads every resize plan's matrices to the device
-        here, on the current stream, so no step uploads any."""
-        key = (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest, self.court_mode)
+        bg_mode, ingest, wire, court, ball stride). Uploads every resize
+        plan's operands (dense matrices or bands, as each pass takes them)
+        to the device here, on the current stream, so no step uploads any."""
+        key = (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest,
+               self._wire(src_hw)[0], self.court_mode, self.ball_stride)
         if key not in self._step_cache:
             self._step_cache[key] = (
                 self._ingest_decode(src_hw),
@@ -429,7 +478,7 @@ class FusedPipeline:
         for plan in (letterbox_plan(wire, self.players.IMGSZ).plan,
                      resize_plan(wire, (size, size), "pil_bicubic"),
                      resize_plan(wire, (self.ball.HEIGHT, self.ball.WIDTH), "pil_bicubic")):
-            plan.device_matrices(self.device)
+            plan.upload(self.device)
         return self._step_cache[key]
 
     def _ball_device_setup(self, n: int, median_resized, median_src, quirk_flags) -> _BallState:
@@ -569,13 +618,16 @@ class FusedPipeline:
         ball_download = launch(lanes.ball, ball)  # sets the new state
         return _Chunk(lo, n_real, det, pose, ball_download), state
 
-    def _unpack_frames(self, builder: _ResultBuilder, det: _Download, pose: _Download,
+    def _unpack_frames(self, results, det: _Download, pose: _Download,
                        n_real: int, src_hw) -> None:
         """The det and pose downloads of a chunk's n_real clip frames, once
-        done, through the trackers' host halves into the builder."""
-        builder.add_det(*self.players.host_step(*det.take(n_real), src_hw))
+        done, through the trackers' host halves into the run's `results`;
+        the det boxes from wire to source pixels where the wire is smaller."""
+        wire = self._wire(src_hw)
+        results.add_det(*self.players.host_step(*det.take(n_real), src_hw,
+                                                wire=wire if wire[0] != tuple(src_hw) else None))
         kpts, _, valid = self.pose.host_step(*pose.take(n_real), src_hw)
-        builder.add_pose(kpts, valid)
+        results.add_pose(kpts, valid)
 
     def _drain(self, chunk: _Chunk, builder: _ResultBuilder, n: int, src_hw) -> None:
         """Wait for a chunk's downloads, then its host work: the trackers'
@@ -702,8 +754,14 @@ class FusedPipeline:
         else:
             median_resized = median_model_resolution(ball.median, ball.HEIGHT, ball.WIDTH,
                                                      ball.bg_mode, self.device)
-        # Float median at source resolution for the subtract modes'
-        # difference images on the device.
-        median_src = ball.median.astype(np.float32) if subtract_mode else None
+        # Float median for the subtract modes' difference images on the
+        # device, at the resolution they run at: the source, or the wire in
+        # the 'derived' ingest (INTER_AREA, as the frames).
+        median_src = None
+        if subtract_mode:
+            median_src = ball.median.astype(np.float32)
+            wire_hw = self._wire(src_hw)[0]
+            if wire_hw != src_hw:
+                median_src = resize_area(median_src, wire_hw)
         return median_resized, median_src, fw, quirk_flags, n, src_hw
 

@@ -145,15 +145,25 @@ class PlayerTracker(Tracker):
                                top_k=self.nms_top_k)
         return pack_rows([candidate_count(person, self.CONF), *cands])
 
-    def host_step(self, packed: torch.Tensor, layout: Layout, src_hw: tuple[int, int]):
+    def host_step(self, packed: torch.Tensor, layout: Layout, src_hw: tuple[int, int],
+                  wire=None):
         """The host half on the downloaded rows of `device_step`'s buffer:
         the greedy NMS pass, the unletterbox, the clip to the frame and the
-        polygon gate. Returns numpy (boxes (B, D, 4) in source pixels,
-        scores (B, D), valid (B, D))."""
+        polygon gate. `wire`: ((wire_h, wire_w), sx, sy) where the frames
+        the device step saw were downscaled from the source (the fused
+        pipeline's 'derived' ingest): boxes are unletterboxed to wire pixels
+        and scaled by (sx, sy) before the clip. Returns numpy (boxes (B, D,
+        4) in source pixels, scores (B, D), valid (B, D))."""
         h, w = src_hw
         n_cand, *cands = unpack_rows(packed, layout)
         boxes, scores, _, _, valid = nms_select(NMSCandidates(*cands), self.max_detections)
-        boxes = letterbox_plan((h, w), self.IMGSZ).boxes_to_source(boxes)
+        if wire is None:
+            boxes = letterbox_plan((h, w), self.IMGSZ).boxes_to_source(boxes)
+        else:
+            (wire_hw, sx, sy) = wire
+            boxes = letterbox_plan(tuple(wire_hw), self.IMGSZ).boxes_to_source(boxes)
+            boxes = torch.stack([boxes[..., 0] * sx, boxes[..., 1] * sy,
+                                 boxes[..., 2] * sx, boxes[..., 3] * sy], dim=-1)
         # ultralytics scale_boxes clips to the source frame.
         boxes = torch.stack([boxes[..., 0].clamp(0, w), boxes[..., 1].clamp(0, h),
                              boxes[..., 2].clamp(0, w), boxes[..., 3].clamp(0, h)], dim=-1)

@@ -158,13 +158,18 @@ class TrackingRunner:
         max_cached_frames: int = 4000,
         fused: bool = False,
         fused_chunk: int = 16,
-        # Wire format: 'rgb', or 'i420' (1.5 bytes a pixel, rebuilt on the
+        # Wire format: 'rgb', 'i420' (1.5 bytes a pixel, rebuilt on the
         # device bit-exactly to cv2; the only deviation from 'rgb' is the
-        # chroma subsampling round trip).
+        # chroma subsampling round trip), or 'derived' (I420 of the frame
+        # downscaled on the host to a long side of at most
+        # fused_wire_long_side; every model input derived on the device).
         fused_ingest: str = "i420",
-        # Only checked: 'auto' / 'host' (host ByteTrack at the drain) and
-        # stride 1 (the reference's rolling ensemble) are the ported values.
+        fused_wire_long_side: int = 960,
+        # Only checked: 'auto' / 'host' (host ByteTrack at the drain) are the
+        # ported values.
         fused_association: str = "auto",
+        # 1: the reference's stride-1 rolling ensemble; the ball tracker's
+        # seq_len: each window evaluated once (nonoverlap, an opt-in trade).
         fused_ball_stride: int = 1,
         # Draw on a worker thread while the fused pass runs (render only).
         fused_stream_draw: bool = False,
@@ -185,10 +190,14 @@ class TrackingRunner:
         self.fused = fused
         self.fused_chunk = fused_chunk
         self.fused_ingest = fused_ingest
+        self.fused_wire_long_side = fused_wire_long_side
+        self.fused_ball_stride = fused_ball_stride
         if fused:
-            # Refuse the fused options that are not ported here, before any
-            # decode, rather than after the per-tracker set-up.
-            FusedPipeline.check_options(fused_ingest, fused_association, fused_ball_stride)
+            # Refuse the fused options that are unknown or not ported here,
+            # before any decode, rather than after the per-tracker set-up.
+            seq_lens = [t.tracknet_seq_len for t in trackers if str(t) == "ball_tracker"]
+            FusedPipeline.check_options(fused_ingest, fused_association, fused_ball_stride,
+                                        seq_lens[0] if seq_lens else None, fused_chunk)
         # With nothing to draw, the drawer stays off.
         self.fused_stream_draw = fused_stream_draw and render
         self.render = render
@@ -279,7 +288,8 @@ class TrackingRunner:
             pipeline = self._fused_pipeline = FusedPipeline(
                 by_name["players_tracker"], by_name["players_keypoints_tracker"],
                 by_name["ball_tracker"], court, chunk=self.fused_chunk,
-                ingest=self.fused_ingest,
+                ingest=self.fused_ingest, wire_long_side=self.fused_wire_long_side,
+                ball_stride=self.fused_ball_stride,
             )
         drawer, stream = None, None
         self._fused_drew = False

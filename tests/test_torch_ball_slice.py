@@ -136,12 +136,16 @@ def test_runner_refuses_unported_passes(tmp_path, rng):
     _write_clip(rng, clip, 2)
     tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
-    for kwargs in ({"render": False, "fused": True, "fused_association": "device"},
-                   {"render": False, "fused": True, "fused_ingest": "derived"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrackingRunner([tracker], clip, tmp_path / "o.mp4", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
+                       fused_association="device")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BallTracker(None, inpainting_model_path="inpaint.pt", device="cpu")
+    # The 'derived' ingest and the nonoverlap stride, once refused, are taken.
+    for kwargs in ({"fused_ingest": "derived"}, {"fused_ball_stride": 8}):
+        runner = TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
+                                **kwargs)
+        assert runner.fused_ingest == kwargs.get("fused_ingest", "i420")
 
 
 def test_short_clip_zero_fills(tmp_path, rng):

@@ -1,6 +1,8 @@
 """Kernels K1 and K2 on the card against their plain PyTorch versions,
-YOLOv8m and the NMS on the card against their CPU results, and the fused
-pipeline on the card against the per-tracker paths (decisive fakes).
+YOLOv8m, the subpixel TrackNet, the banded resize and the NMS on the card
+against their CPU results, and the fused pipeline on the card against the
+per-tracker paths and its CPU run (decisive fakes), the fast configuration
+('derived' ingest, nonoverlap ball stride) included.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -67,6 +69,13 @@ def _bf16_close(got, want):
         (1, 40, 40, 576, 48, "silu"),   # pose keypoint head 576 -> 48
         (1, 80, 80, 384, 48, "silu"),   # pose keypoint head 384 -> 48
         (1, 48, 80, 192, 64, "silu"),   # box head at 48x80
+        # TrackNet's subpixel skip convs (identity epilogue) and YOLOv8m-pose
+        # at 640x640:
+        (1, 72, 128, 256, 256, "none"),
+        (1, 144, 256, 128, 128, "none"),
+        (2, 288, 512, 64, 64, "none"),
+        (2, 160, 160, 48, 48, "silu"),  # P2 of pose @640
+        (1, 20, 20, 576, 48, "silu"),   # keypoint head at 20x20
     ],
 )
 def test_k1_matches_plain(dev, b, h, w, cin, cout, act):
@@ -105,16 +114,24 @@ def test_k1_takes_a_channel_slice(dev):
 # (abs) after ~90 bf16 layers (chip_smoke.py's bounds; measured <= 2e-4 and
 # <= 0.0074 px there).
 YOLO_SCORE_ATOL, YOLO_PIXEL_ATOL = 4e-3, 0.5
+# The subpixel TrackNet's sigmoid heatmaps (abs; chip_smoke.py's bound,
+# measured 0.0065 on the H100) and the floor of their fp32 std (He-normal
+# weights give 0.326).
+SUBPIXEL_ATOL, SUBPIXEL_MIN_STD = 2e-2, 0.1
 
 
-def test_yolov8m_detect_bf16_matches_fp32(dev):
-    model = YOLOv8("m", 1)
-    lecun_normal_(model, torch.Generator().manual_seed(3))
+def _he_normal(model, seed):
+    """N(0, 2/fan_in) conv weights: under LeCun the signal dies out with depth."""
+    lecun_normal_(model, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.Conv2d):
                 m.weight.mul_(np.sqrt(2.0))
-    model.eval()
+    return model.eval()
+
+
+def test_yolov8m_detect_bf16_matches_fp32(dev):
+    model = _he_normal(YOLOv8("m", 1), 3)
     x = torch.rand((2, 96, 160, 3), generator=torch.Generator().manual_seed(4))
     with torch.no_grad():
         want = model(x)
@@ -259,5 +276,60 @@ def test_fused_i420_on_card_equals_cpu(dev):
     frames = clip_frames(np.random.default_rng(22))
     want = caches(FusedPipeline(*make_trackers(), chunk=8, ingest="i420").run(iter(frames), N))
     got = caches(FusedPipeline(*make_trackers(device=dev), chunk=8, ingest="i420")
+                 .run(iter(frames), N))
+    assert got == want
+
+
+def test_subpixel_tracknet_on_card_matches_cpu_fp32(dev):
+    """TrackNet with subpixel_up in bf16 on the card (K1 on its 14 ConvBNs
+    and 3 skip convs, the phase layout, the fp32 epilogue) against the fp32
+    plain path of itself and of the dense TrackNet on the CPU, with He-normal
+    weights so the heatmaps depend on the input (chip_smoke.py's bound)."""
+    from padel_analytics_tpu_torch.models.tracknet import make_tracknet
+
+    model, in_dim = make_tracknet(8, "concat", subpixel_up=True)
+    _he_normal(model, 4)
+    dense, _ = make_tracknet(8, "concat")
+    dense.load_state_dict(model.state_dict())
+    dense.eval()
+    x = torch.rand((2, 64, 128, in_dim), generator=torch.Generator().manual_seed(5))
+    with torch.inference_mode():
+        ref, ref_dense = model(x), dense(x)
+    assert float(ref.std()) > SUBPIXEL_MIN_STD  # a live signal, not saturated
+    model.to(dev)
+    before = conv3x3.launches
+    with torch.inference_mode():
+        got = model(x.to(dev, torch.bfloat16)).cpu()
+    assert conv3x3.launches - before == 17
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= SUBPIXEL_ATOL
+    assert float((got - ref_dense).abs().max()) <= SUBPIXEL_ATOL
+
+
+def test_banded_resize_on_card_matches_cpu(dev):
+    """The pose squash from 1080p (both passes banded) on the card against
+    the CPU: uint8 equal, or one step at a .5 boundary on at most 0.1%."""
+    from padel_analytics_tpu_torch.ops import resize
+
+    plan = resize.resize_plan((1080, 1920), (1280, 1280), "pil_bicubic")
+    assert plan.forms() == ("banded", "banded")
+    img = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 1080, 1920, 3),
+                                                             dtype=np.uint8))
+    want = torch.floor(plan.apply(img) + 0.5).clamp(0, 255)
+    got = torch.floor(plan.apply(img.to(dev)) + 0.5).clamp(0, 255).cpu()
+    off = (got - want).abs()
+    assert float(off.max()) <= 1.0 and int((off > 0).sum()) <= off.numel() // 1000
+
+
+@pytest.mark.parametrize("kwargs", [{"ingest": "derived", "wire_long_side": 64},
+                                    {"ingest": "derived", "wire_long_side": 64,
+                                     "ball_stride": 8}],
+                         ids=["derived", "derived-stride8"])
+def test_fused_fast_on_card_equals_cpu(dev, kwargs):
+    """The fast configuration's ingest and ball mode on the card: the host's
+    INTER_AREA and I420 pack, the pinned upload, the nonoverlap windows."""
+    frames = clip_frames(np.random.default_rng(23))
+    want = caches(FusedPipeline(*make_trackers(), chunk=8, **kwargs).run(iter(frames), N))
+    got = caches(FusedPipeline(*make_trackers(device=dev), chunk=8, **kwargs)
                  .run(iter(frames), N))
     assert got == want

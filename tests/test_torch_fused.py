@@ -235,8 +235,6 @@ def _left_for_later():
     players, pose, ball, court = make_trackers()
     pipe = FusedPipeline(players, pose, ball, court)
     return {
-        "derived ingest": lambda: FusedPipeline(players, pose, ball, court, ingest="derived"),
-        "ball_stride=seq_len": lambda: FusedPipeline(players, pose, ball, court, ball_stride=8),
         "device association": lambda: FusedPipeline(players, pose, ball, court,
                                                     association="device"),
         "model-based court": lambda: KeypointsTracker(model_type="yolo"),
@@ -253,9 +251,20 @@ def test_unported_modes_raise(item):
         _left_for_later()[item]()
 
 
-@pytest.mark.parametrize("kwargs", [{"fused_ingest": "derived"},
-                                    {"fused_association": "device"},
-                                    {"fused_ball_stride": 8}])
+@pytest.mark.parametrize("kwargs", [{"ingest": "derived", "wire_long_side": 64},
+                                    {"ball_stride": 8}], ids=["derived ingest",
+                                                              "ball_stride=seq_len"])
+def test_formerly_unported_modes_run(rng, kwargs):
+    """The two modes that raised NotImplementedError before they were
+    ported now run: one result a frame for every tracker."""
+    pipe = FusedPipeline(*make_trackers(), chunk=8, **kwargs)
+    out = pipe.run(iter(clip_frames(rng)), N)
+    assert {k: len(v) for k, v in out.items()} == dict.fromkeys(
+        ("players", "players_keypoints", "ball", "keypoints"), N)
+    assert pipe.ingest == kwargs.get("ingest", "rgb")
+
+
+@pytest.mark.parametrize("kwargs", [{"fused_association": "device"}])
 def test_runner_refuses_unported_fused_options(rng, tmp_path, kwargs):
     clip = tmp_path / "clip.mp4"
     _write_clip(clip, clip_frames(rng, n=2))
@@ -263,9 +272,36 @@ def test_runner_refuses_unported_fused_options(rng, tmp_path, kwargs):
         TrackingRunner([], clip, tmp_path / "o.mp4", fused=True, render=False, **kwargs)
 
 
+@pytest.mark.parametrize("kwargs", [{"fused_ingest": "derived", "fused_wire_long_side": 64},
+                                    {"fused_ball_stride": 8}],
+                         ids=["derived ingest", "ball_stride=seq_len"])
+def test_runner_takes_fast_fused_options(rng, tmp_path, kwargs):
+    """The runner's 'derived' and nonoverlap options, once refused, run the
+    fused pipeline to one result a frame."""
+    clip = tmp_path / "clip.mp4"
+    _write_clip(clip, clip_frames(rng, n=14))
+    trackers = make_trackers(n=14)
+    runner = TrackingRunner(list(trackers), clip, tmp_path / "o.mp4", fused=True, fused_chunk=8,
+                            render=False, **kwargs)
+    runner.run()
+    assert "fused_inference" in runner.stage_times
+    assert all(len(t.results) == 14 for t in trackers)
+
+
+@pytest.mark.parametrize("kwargs,match", [({"fused_ball_stride": 3}, "ball_stride"),
+                                          ({"fused_ball_stride": 8, "fused_chunk": 12},
+                                           "chunk % seq_len")])
+def test_runner_checks_the_ball_stride(rng, tmp_path, kwargs, match):
+    clip = tmp_path / "clip.mp4"
+    _write_clip(clip, clip_frames(rng, n=2))
+    with pytest.raises(ValueError, match=match):
+        TrackingRunner(list(make_trackers(n=2)), clip, tmp_path / "o.mp4", fused=True,
+                       render=False, **kwargs)
+
+
 def test_runner_fused_defaults():
     params = inspect.signature(TrackingRunner).parameters
     assert {k: params[k].default for k in ("fused_chunk", "fused_ingest", "fused_association",
-                                           "fused_ball_stride")} == {
+                                           "fused_ball_stride", "fused_wire_long_side")} == {
         "fused_chunk": 16, "fused_ingest": "i420", "fused_association": "auto",
-        "fused_ball_stride": 1}
+        "fused_ball_stride": 1, "fused_wire_long_side": 960}

@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
     scanned = {p.relative_to(PKG).as_posix() for p in _sources()}
     assert {"analytics/data_analytics.py", "analytics/projected_court.py", "apps/cli.py",
             "apps/keypoint_picker.py", "ops/homography.py", "utils/conversions.py",
-            "utils/encoder_worker.py", "utils/video.py", "trackers/runner.py"} <= scanned
+            "utils/encoder_worker.py", "utils/video.py", "trackers/runner.py",
+            "ops/area.py"} <= scanned
     bad = [
         f"{path.relative_to(PKG.parent)}:{node.lineno} imports {name}"
         for path in files
@@ -138,12 +139,19 @@ def test_from_flat_reads_reference_names():
     assert cfg.to_dict()["ball"]["seq_len"] == 8
 
 
-@pytest.mark.parametrize("jax_field", ["use_pallas", "subpixel_up", "window_stride"])
+@pytest.mark.parametrize("jax_field", ["use_pallas"])
 def test_unported_ball_options_are_absent(jax_field):
     assert jax_field not in BallTrackerConfig.__dataclass_fields__
     if jax_field == "use_pallas":  # on CUDA the kernels are the path
         assert jax_field not in PlayersTrackerConfig.__dataclass_fields__
         assert jax_field not in PlayerKeypointsTrackerConfig.__dataclass_fields__
+
+
+@pytest.mark.parametrize("field,default", [("subpixel_up", False), ("window_stride", 1)])
+def test_ported_ball_options_default_as_the_reference(field, default):
+    """The ball tracker's fast options, once absent, are fields with the
+    reference behaviour as their default."""
+    assert BallTrackerConfig.__dataclass_fields__[field].default == default
 
 
 def test_pose_config_refuses_other_sizes():

@@ -139,7 +139,7 @@ def test_cv2_linear_plan_matches_cv2(rng):
 
 @pytest.mark.parametrize("method", ["pil_bicubic", "cv2_linear"])
 def test_resize_plan_uploads_its_matrices_once(rng, monkeypatch, method):
-    """A second `apply` reuses the device matrices of the first (no upload
+    """A second `apply` reuses the device operands of the first (no upload
     per call: a pageable upload blocks the host); the result is unchanged."""
     cached = resize.resize_plan((20, 30), (12, 16), method)
     # A fresh plan of the same matrices: the cached one may hold its
@@ -151,9 +151,10 @@ def test_resize_plan_uploads_its_matrices_once(rng, monkeypatch, method):
     monkeypatch.setattr(resize.torch, "as_tensor",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     first = plan.apply(img)
-    mats = plan.device_matrices(torch.device("cpu"))
+    ops = plan.upload(torch.device("cpu"), banded=False)
     second = plan.apply(img)
     assert len(calls) == 2  # r_h and r_w, once
-    assert plan.device_matrices("cpu") is mats
-    assert mats[0].dtype == torch.float32 and mats[0].shape == (12, 20)
+    assert all(a is b for a, b in zip(plan.upload("cpu", banded=False), ops))
+    assert [op[0] for op in ops] == ["dense", "dense"]
+    assert ops[1][1].dtype == torch.float32 and ops[1][1].shape == (12, 20)
     assert torch.equal(first, second)
