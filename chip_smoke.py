@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's ball, players, pose, fused and collect paths and its CLI on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players, pose, fused, collect and model-court paths and its CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -96,7 +96,26 @@ is printed):
    equal to the stride-1 caches); then per stride two passes (the second
    equal to the first), the launches counted over the first,
    measure_device_split, peak device memory and a profiled pass (K1 and K2
-   device ms a chunk).
+   device ms a chunk);
+15. the model-based court and InpaintNet: K1 checked and timed at the court
+   YOLOv8m-pose's shapes (12 keypoints, 640x640 squash; 58 convs, the same
+   shapes as pose @640) and at ResNet-50's 13 stride-1 conv2s at 224x224,
+   each at batch 8 and 16, beside cuDNN and the bound (in phase 3's order,
+   before K2); in phase 5, the court YOLOv8m-pose and ResNet-50 (bf16, K1 +
+   cuDNN, He-normal weights) against their fp32 plain path and InpaintNet
+   on the card against the CPU; the decisive check at 1080p (a 12-keypoint
+   cell detector and ResNet-50 as the court, an InpaintNet on the ball, a
+   6-frame ball gap and 3 blank frames): the fused runner's court and
+   inpainted ball caches equal to the per-tracker runner's (the resnet
+   court within 1e-2 px at the same batch), the yolo run's data.csv too;
+   then the moving-camera main path at full width,
+   TrackingRunner([players, pose, ball + InpaintNet, court], fused=True,
+   render=False, collect_data=True), with the court from YOLOv8m-pose (12
+   keypoints) @640 and then from ResNet-50 @224, heads calibrated: launches
+   counted over the first pass (the kernels line's court_yolo and
+   court_resnet), a second pass equal to the first (caches and data.csv),
+   measure_device_split's court sub-step, the inpaint pass's ms, peak
+   memory and the frames without a court.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -123,14 +142,17 @@ from padel_analytics_tpu_torch.analytics.data_analytics import COLUMNS
 from padel_analytics_tpu_torch.apps import cli
 from padel_analytics_tpu_torch.config import (
     BallTrackerConfig,
+    CourtKeypointsTrackerConfig,
     PipelineConfig,
     PlayerKeypointsTrackerConfig,
     PlayersTrackerConfig,
 )
 from padel_analytics_tpu_torch.models.layers import ConvBN, lecun_normal_
-from padel_analytics_tpu_torch.models.tracknet import make_tracknet
+from padel_analytics_tpu_torch.models.resnet import ResNet50Regressor, imagenet_normalize
+from padel_analytics_tpu_torch.models.tracknet import InpaintNet, make_tracknet
 from padel_analytics_tpu_torch.models.yolov8 import C2f, YOLOv8
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms, resize
+from padel_analytics_tpu_torch.ops._fp32 import no_tf32
 from padel_analytics_tpu_torch.ops.area import resize_area, resize_area_planes
 from padel_analytics_tpu_torch.ops.color import planes_to_i420, rgb_to_i420
 from padel_analytics_tpu_torch.ops.polygon import PolygonZone
@@ -209,6 +231,22 @@ TRACKNET_SUBPIXEL_CALLS = (
     + [(s, "none") for s in SUBPIXEL_SKIP_CONVS])
 # The derived ingest's wire: the long side of a 1080p frame cut to 960.
 WIRE_LONG_SIDE = 960
+# The court models' inputs: the YOLOv8m-pose (12 keypoints) squash and
+# ResNet-50's. ResNet-50's stride-1 3x3 convs (its bottlenecks' conv2 but the
+# first of layers 2-4): 3, 3, 5 and 2 of these.
+COURT_YOLO_HW, RESNET_HW = (640, 640), (224, 224)
+RESNET_CONVS = [(64, 64, 56, 56), (128, 128, 28, 28), (256, 256, 14, 14), (512, 512, 7, 7)]
+# ResNet-50 bf16 on the card (K1 and cuDNN) against its fp32 plain path on
+# the CPU, He-normal weights: logits' max abs error over their largest
+# magnitude after 53 bf16 layers (bf16 keeps 8 bits: 2^-8 relative each).
+RESNET_REL_ATOL = 5e-2
+# InpaintNet (1-D convs, plain torch) on the card against the CPU: fp32
+# without TF32, and bf16 as the ball tracker runs it; sigmoid outputs.
+INPAINT_FP32_ATOL, INPAINT_BF16_ATOL = 1e-5, 2e-2
+# The fused court against the per-tracker court, the ResNet at the same
+# batch (keypoints in source pixels; cuDNN may pick other algorithms on
+# other streams).
+COURT_RESNET_PX = 1e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -564,8 +602,10 @@ def phase_model(dev) -> None:
     print(f"TrackNet 2x64x128 bf16 (K1) vs fp32 plain: max abs err {err:.4f} "
           f"(bound {MODEL_ATOL})")
     _subpixel_model_check(dev)
-    for nk in (0, 13):
+    for nk in (0, 13, 12):
         _yolo_model_check(dev, nk)
+    _resnet_model_check(dev)
+    _inpaintnet_check(dev)
 
 
 def he_normal_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -609,7 +649,7 @@ def _subpixel_model_check(dev) -> None:
 
 
 def _yolo_model_check(dev, nk: int) -> None:
-    name = "YOLOv8m-pose" if nk else "YOLOv8m detect"
+    name = {0: "YOLOv8m detect", 13: "YOLOv8m-pose", 12: "court YOLOv8m-pose (12 keypoints)"}[nk]
     model = he_normal_(YOLOv8("m", 1, nk), 7 + nk)
     x = torch.rand((2, 128, 160, 3), generator=torch.Generator().manual_seed(8))
     with torch.inference_mode():
@@ -635,6 +675,50 @@ def _yolo_model_check(dev, nk: int) -> None:
     print(f"{name} 2x128x160 bf16 (K1) vs fp32 plain: max abs err "
           + ", ".join(f"{k} {e:.4f} (bound {bounds[k]})" for k, e in errs.items())
           + f"; score range {float(ref['scores'].min()):.3f}-{float(ref['scores'].max()):.3f}")
+
+
+def _resnet_model_check(dev) -> None:
+    """ResNet-50 on the card (bf16: K1 on its 13 stride-1 conv2s, cuDNN
+    elsewhere, BN folded in fp32) against its fp32 plain path on the CPU, at
+    224x224 with He-normal weights."""
+    model = he_normal_(ResNet50Regressor(), 17)
+    x = imagenet_normalize(torch.rand((2, *RESNET_HW, 3), generator=torch.Generator().manual_seed(18)))
+    with torch.inference_mode():
+        ref = model(x)
+    model.to(dev)
+    conv3x3.reset_launches()
+    with torch.inference_mode():
+        got = model(x.to(dev, torch.bfloat16)).cpu()
+    check(conv3x3.launches == 13, f"ResNet-50: {conv3x3.launches} K1 launches")
+    check(got.shape == ref.shape == (2, 24) and bool(torch.isfinite(got).all()),
+          "ResNet-50: output shape or finiteness")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    check(err <= RESNET_REL_ATOL * scale,
+          f"ResNet-50 bf16 on the card vs fp32 plain: max err {err} of logits up to {scale}")
+    print(f"ResNet-50 2x224x224 bf16 (K1 + cuDNN, He-normal) vs fp32 plain: max abs err {err:.4g} "
+          f"on logits up to {scale:.4g} ({err / scale:.4f} of it; bound {RESNET_REL_ATOL}); "
+          f"logit std {float(ref.std()):.4g}")
+
+
+def _inpaintnet_check(dev) -> None:
+    """InpaintNet (plain torch conv1d) on the card against the CPU on 16-frame
+    windows: in fp32 without TF32, and in bf16 as the ball tracker runs it."""
+    net = lecun_normal_(InpaintNet(), torch.Generator().manual_seed(19)).eval()
+    g = torch.Generator().manual_seed(20)
+    coords, mask = torch.rand((64, 16, 2), generator=g), (torch.rand((64, 16, 1), generator=g) > 0.7).float()
+    with torch.inference_mode():
+        ref = net(coords, mask)
+    net.to(dev)
+    with torch.inference_mode(), no_tf32():
+        got32 = net(coords.to(dev), mask.to(dev)).cpu()
+        got16 = net(coords.to(dev), mask.to(dev), torch.bfloat16).cpu()
+    e32, e16 = float((got32 - ref).abs().max()), float((got16 - ref).abs().max())
+    check(e32 <= INPAINT_FP32_ATOL and e16 <= INPAINT_BF16_ATOL,
+          f"InpaintNet on the card vs the CPU: max err fp32 {e32}, bf16 {e16}")
+    print(f"InpaintNet 64x16 on the card vs the CPU: max abs err fp32 {e32:.3g} (bound "
+          f"{INPAINT_FP32_ATOL}), bf16 {e16:.4f} (bound {INPAINT_BF16_ATOL}); output std "
+          f"{float(ref.std()):.4f}")
 
 
 def synthetic_rally(n: int, seed: int) -> list[np.ndarray]:
@@ -1001,29 +1085,37 @@ def _json(results) -> list:
     return [r.serialize() for r in results]
 
 
-def decisive_clip(n: int, seed: int) -> list[np.ndarray]:
+def decisive_clip(n: int, seed: int, gap: tuple[int, int] = (0, 0),
+                  blank: tuple[int, int] = (0, 0)) -> list[np.ndarray]:
     """1920x1080: a dark noisy court, four red player-sized figures (bright
-    to the detector, dark on average to the TrackNet) and a bright ball."""
+    to the detector, dark on average to the TrackNet) and a bright ball; the
+    ball missing in the frames of `gap` [lo, hi), everything in those of
+    `blank`."""
     rng = np.random.default_rng(seed)
     ys, xs = np.mgrid[-8:9, -8:9]
     disk = ys**2 + xs**2 <= 64
     frames = []
     for i in range(n):
         f = rng.integers(20, 30, (1080, 1920, 3), dtype=np.uint8)
+        if blank[0] <= i < blank[1]:
+            frames.append(f)
+            continue
         for x0, y0, vx in ((300, 300, 9), (1400, 350, -8), (500, 700, 7), (1300, 720, -6)):
             f[y0: y0 + 180, x0 + vx * i: x0 + vx * i + 70] = (250, 60, 60)
         cx, cy = 200 + 30 * i, int(900 - 30 * i + 0.45 * i * i)
-        f[cy - 8: cy + 9, cx - 8: cx + 9][disk] = (235, 240, 80)
+        if not gap[0] <= i < gap[1]:
+            f[cy - 8: cy + 9, cx - 8: cx + 9][disk] = (235, 240, 80)
         frames.append(f)
     return frames
 
 
-def _fake_trackers(n: int, pose_size: int = 1280):
+def _fake_trackers(n: int, pose_size: int = 1280, inpaint: Path | None = None):
     players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
                             config=PlayersTrackerConfig())
     pose = PlayerKeypointsTracker(
         None, config=PlayerKeypointsTrackerConfig(train_image_size=pose_size))
-    ball = BallTracker(None, config=BallTrackerConfig())
+    ball = BallTracker(None, config=BallTrackerConfig(
+        inpainting_model_path=None if inpaint is None else str(inpaint)))
     players.engine.model = CellDetector(pose=False)
     pose.engine.model = CellDetector(pose=True)
     ball.tracknet.model = BrightTrackNet()
@@ -1611,6 +1703,247 @@ def phase_fast(frames, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the model-based court (yolo, resnet) and InpaintNet.
+
+
+def phase_court_k1(dev, timed: dict, k1: dict) -> dict:
+    """K1 at the court models' shapes, traced from the models on the meta
+    device: the court YOLOv8m-pose (12 keypoints) at its 640x640 squash (58
+    convs; its keypoint head's c4 = max(192 // 4, 36) = 48 channels, as
+    pose's max(48, 39)) and ResNet-50's 13 stride-1 conv2s at 224x224, each
+    at B=8 and at the fused chunk of 16, against the plain version, timed
+    beside cuDNN and the bound. Returns the sums over each model's convs."""
+    court = k1_call_shapes(YOLOv8("m", 1, 12), *COURT_YOLO_HW)
+    resnet = k1_call_shapes(ResNet50Regressor(), *RESNET_HW)
+    check(len(court) == 58 and len(resnet) == 13, f"K1 call sites {len(court)}, {len(resnet)}")
+    check(sorted(set(resnet)) == sorted(RESNET_CONVS), f"ResNet-50 K1 shapes {sorted(set(resnet))}")
+    sums = {}
+    for batch in (BATCH, FUSED_CHUNK):
+        sums[f"court_yolo_640x640_b{batch}"] = _k1_sum(
+            "the court YOLOv8m-pose @640x640", _k1_calls(dev, timed, [(s, "silu") for s in court],
+                                                         batch), batch)
+        sums[f"resnet50_224x224_b{batch}"] = _k1_sum(
+            "ResNet-50 @224x224", _k1_calls(dev, timed, [(s, "relu") for s in resnet], batch), batch)
+    k1["max_abs_err"] = max(v["max_err"] for v in timed.values())
+    return sums
+
+
+def write_inpaint_checkpoint(directory: Path) -> Path:
+    """A seeded InpaintNet in the reference's checkpoint format
+    ({'model': state_dict, 'param_dict': {'seq_len': 16}}), written by
+    torch.save; nothing is downloaded."""
+    net = lecun_normal_(InpaintNet(), torch.Generator().manual_seed(23))
+    path = directory / "inpaintnet.pt"
+    torch.save({"model": net.state_dict(), "param_dict": {"seq_len": 16}}, path)
+    return path
+
+
+def court_tracker(mode: str, batch: int = 8, **cache) -> KeypointsTracker:
+    """The model court at its full configuration (YOLOv8m-pose with 12
+    keypoints at 640, or ResNet-50 at 224), random weights from seed 0."""
+    return KeypointsTracker(config=CourtKeypointsTrackerConfig(model_type=mode, batch_size=batch),
+                            **cache)
+
+
+def calibrate_court(court, frames) -> dict:
+    """Make the random court head give a court a real model would. 'yolo':
+    the cls head as calibrate_cls_head does (about 2 candidates a frame, the
+    best one kept), then the keypoint head's (x, y) projections scaled until
+    the kept candidate's 12 keypoints spread ~150 px around its anchor (they
+    sit within a cell of it at random weights). 'resnet': the fc kernel
+    scaled until the logits' spread over `frames` is 0.3, its bias set to the
+    logits of the synthetic court's 12 keypoints (normalised), so the
+    regression lands near the court lines with a per-frame jitter.
+    Script-side only; the package never calibrates."""
+    model = court.engine.model
+    x = torch.from_numpy(np.stack(frames)).to(court.device)
+    if court.model_type == "resnet":
+        plan = resize.resize_plan(tuple(x.shape[1:3]), RESNET_HW, "pil_bilinear")
+        with torch.no_grad():
+            model.fc.bias.zero_()
+        with torch.inference_mode():
+            logits = model(imagenet_normalize(plan.apply(x) / 255.0).to(court.compute_dtype))
+        scale = 0.3 / max(float(logits.std()), 1e-6)
+        target = np.clip(np.array(COURT_KEYPOINTS, np.float64) / (1920.0, 1080.0), 0.02, 0.98)
+        bias = torch.tensor(np.log(target / (1 - target)).reshape(-1), dtype=torch.float32)
+        with torch.no_grad():
+            model.fc.weight.mul_(scale)
+            model.fc.bias.copy_(bias.to(court.device))
+        return {"fc_kernel_scale": float(f"{scale:.3g}"), "fc_bias": "logit(court keypoints)"}
+    calib = calibrate_cls_head(court, frames, target=2)
+    projs = [getattr(model, f"kpt_{i}").proj for i in range(3)]
+    xy = torch.tensor([c % 3 < 2 for c in range(36)], device=court.device)
+    spread = None
+    for _ in range(4):
+        with torch.inference_mode():
+            out, scores = court.model_outputs(x)
+            best = scores.argmax(dim=-1)
+            k = out["kpts"][torch.arange(len(best), device=best.device), best][..., :2]
+            spread = float(k.std(dim=1).mean())
+        if spread >= 100.0:
+            break
+        with torch.no_grad():
+            for p in projs:
+                f = min(150.0 / max(spread, 1e-3), 64.0)
+                p.weight[xy] *= f
+                p.bias[xy] *= f
+    return {**calib, "keypoint_spread_px": round(spread, 1)}
+
+
+def _court_runner(mode: str, frames, tmp: Path, fused: bool, inpaint: Path):
+    """The decisive fakes (cell detectors, the bright-pixel TrackNet) with a
+    model court and an InpaintNet, under a runner that collects data.csv.
+    'yolo': a 12-keypoint cell detector; 'resnet': ResNet-50 with He-normal
+    weights and its head calibrated, at the fused chunk's batch."""
+    n = len(frames)
+    players, pose, ball, _ = _fake_trackers(n, inpaint=inpaint)
+    court = court_tracker(mode, batch=FUSED_CHUNK)
+    if mode == "yolo":
+        court.engine.model = CellDetector(pose=True, nk=12)
+    else:
+        he_normal_(court.engine.model, 24)
+        calibrate_court(court, frames[:4])
+    court.video_info_post_init(VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n))
+    runner = TrackingRunner([players, pose, ball, court], MemoryClip(frames, fps=30.0),
+                            tmp / "unused.mp4", fused=fused, fused_chunk=FUSED_CHUNK,
+                            fused_ingest="rgb", render=False, collect_data=True)
+    with torch.inference_mode():
+        runner.run()
+    check(("fused_inference" in runner.stage_times) == fused, f"court decisive {mode}: path")
+    csv = tmp / f"{mode}_{fused}.csv"
+    runner.data_analytics.write_csv(csv, runner.video_info.fps)
+    return runner.trackers, csv
+
+
+def phase_court_decisive() -> None:
+    """The fused model court and the fused InpaintNet pass against the
+    per-tracker runner (TrackingRunner fused=False), 1080p, 45 frames with a
+    6-frame gap in the ball and 3 blank frames (no court), rgb, chunk 16: the yolo court's cache equal
+    (decisive fakes), the resnet court's within COURT_RESNET_PX at the same
+    batch, the inpainted ball cache equal, data.csv of the yolo run equal."""
+    n = 45
+    frames = decisive_clip(n, seed=12, gap=(20, 26), blank=(33, 36))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        inpaint = write_inpaint_checkpoint(tmp)
+        for mode in ("yolo", "resnet"):
+            (fused, fused_csv), (sep, sep_csv) = (_court_runner(mode, frames, tmp, f, inpaint)
+                                                  for f in (True, False))
+            a, b = (_json(fused["keypoints_tracker"].results),
+                    _json(sep["keypoints_tracker"].results))
+            check(len(a) == len(b) == n, f"court decisive {mode}: {len(a)}, {len(b)} results")
+            empty = sum(not k for k in a)
+            if mode == "yolo":
+                bad = [f for f in range(n) if a[f] != b[f]]
+                check(not bad, f"court decisive yolo: fused differs at frames {bad[:10]}")
+                check(empty == 3, f"court decisive yolo: {empty} empty detections, want the 3 "
+                                  "blank frames'")
+                check(fused_csv.read_bytes() == sep_csv.read_bytes(),
+                      "court decisive yolo: fused data.csv differs from the per-tracker one")
+                positions = check_csv(fused_csv, n)
+            else:
+                err = max(abs(p - q) for ka, kb in zip(a, b) for pa, pb in zip(ka, kb)
+                          for p, q in zip(pa["xy"], pb["xy"]))
+                check(empty == 0 and err <= COURT_RESNET_PX,
+                      f"court decisive resnet: fused vs per-tracker max err {err} px, {empty} empty")
+            balls = _json(fused["ball_tracker"].results)
+            check(balls == _json(sep["ball_tracker"].results),
+                  f"court decisive {mode}: the fused inpainted ball cache differs")
+            print(f"court decisive {mode}: {n} frames 1920x1080, chunk {FUSED_CHUNK}, fused = "
+                  f"per-tracker runner: " + (f"court cache equal ({empty} empty detections), "
+                                             f"data.csv equal ({positions} player positions)"
+                                             if mode == "yolo" else
+                                             f"court within {err:.3g} px (bound {COURT_RESNET_PX})")
+                  + f"; inpainted ball cache equal ({sum(x['visibility'] for x in balls)} visible)")
+
+
+def phase_court(frames, smi: str) -> dict:
+    """The moving-camera main path at full width through
+    TrackingRunner([players, pose, ball, court], fused=True, render=False,
+    collect_data=True): YOLOv8m detect @640, YOLOv8m-pose @1280, TrackNet +
+    InpaintNet (seq_len 16) and the court from YOLOv8m-pose (12 keypoints)
+    @640, then from ResNet-50 @224; heads calibrated. Per mode: the launch
+    counters zeroed before and read after the first pass, a second pass
+    equal to the first (caches and data.csv), measure_device_split's court_s,
+    the inpaint pass's ms, peak memory, empty court detections. Returns each
+    mode's launch counts."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    real_chunks = -(-n // FUSED_CHUNK)
+    chunks = -(-(n + 7) // FUSED_CHUNK)
+    out = {}
+    for mode, court_convs in (("yolo", 58), ("resnet", 13)):
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            inpaint = write_inpaint_checkpoint(tmp)
+            players, pose, _, _ = full_width_trackers(tmp)
+            ball = BallTracker(None, config=BallTrackerConfig(inpainting_model_path=str(inpaint)),
+                               save_path=tmp / "ball.json")
+            court = court_tracker(mode, save_path=tmp / "court.json")
+            trackers = (players, pose, ball, court)
+            calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in (players, pose)}
+            calib[f"court {mode}"] = calibrate_court(court, frames[:8])
+            inpaint_ms: list[float] = []
+            pass_fn = ball._inpaint_pass
+
+            def timed_inpaint(pred, video_len):
+                t0 = time.perf_counter()
+                result = pass_fn(pred, video_len)  # ends in a download: synchronised
+                inpaint_ms.append((time.perf_counter() - t0) * 1e3)
+                return result
+
+            ball._inpaint_pass = timed_inpaint
+            runner = TrackingRunner(list(trackers), clip, tmp / "unused.mp4", fused=True,
+                                    fused_chunk=FUSED_CHUNK, render=False, collect_data=True)
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first_s, first_csv = _collect_run(runner, tmp / "data.csv")
+            counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            check("fused_inference" in runner.stage_times, f"court {mode}: the fused path did not run")
+            want_k1 = (110 + court_convs) * real_chunks + 17 * chunks
+            check(counts == {"conv3x3_bn_act": want_k1, "heatmap_cc": chunks},
+                  f"court {mode}: launches {counts}, want K1 {want_k1}, K2 {chunks}")
+            for t in trackers:
+                check(len(t.results) == n, f"court {mode} {t}: {len(t.results)} results")
+                check(len(json.loads(t.save_path.read_text())) == n, f"court {mode} {t}: saved cache")
+            kps = list(court.results)
+            empty = sum(not k for k in kps)
+            check(all(len(k) == 12 and all(math.isfinite(v) for p in k for v in p.xy)
+                      for k in kps if k), f"court {mode}: keypoints")
+            check(mode == "yolo" or empty == 0, f"court resnet: {empty} empty detections")
+            positions = check_csv(tmp / "data.csv", n)
+            found = (f"{_check_players(players.results)}; {_check_pose(pose.results)}; "
+                     f"{sum(b.visibility for b in ball.results)} visible balls after inpainting; "
+                     f"{empty} frames without a court; {positions} player positions in data.csv")
+            first = [_json(t.results) for t in trackers]
+            second_s, second_csv = _collect_run(runner, tmp / "data.csv")
+            check([_json(t.results) for t in trackers] == first and second_csv == first_csv,
+                  f"court {mode}: second pass differs")
+            fused_s = runner.stage_times["fused_inference"]
+            print(f"court {mode} ({smi}): {n} frames 1920x1080, chunk {FUSED_CHUNK}, ingest "
+                  f"{runner.fused_ingest}, {found}; fused + collect {n / first_s:.1f} frames/s "
+                  f"first pass, {n / second_s:.1f} second (fused inference {n / fused_s:.1f} "
+                  f"frames/s), second equal to the first; inpaint pass {inpaint_ms[0]:.2f} / "
+                  f"{inpaint_ms[-1]:.2f} ms (first / second); peak device memory {peak_gib:.2f} "
+                  f"GiB; launches {counts}; calibration {calib}")
+            split = FusedPipeline(players, pose, ball, court, chunk=FUSED_CHUNK,
+                                  ingest=runner.fused_ingest).measure_device_split(
+                iter(frames), n, n_chunks=4)
+            per_chunk = {k: split[k] / 4 * 1e3
+                         for k in ("upload_s", "det_s", "pose_s", "ball_s", "court_s")}
+            print(f"court {mode} device split, ms a chunk of {FUSED_CHUNK}: " + ", ".join(
+                f"{k[:-2]} {v:.3f}" for k, v in per_chunk.items())
+                  + f"; sub-steps {split['device_ms_per_frame']:.3f} ms a frame "
+                    f"({split['device_fps']:.1f} frames/s)")
+            out[f"court_{mode}"] = counts
+            del runner, trackers, players, pose, ball, court
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -1620,6 +1953,7 @@ def main() -> None:
     timed: dict = {}
     k1 = phase_k1(dev, timed)
     k1["sums"]["fast"] = phase_fast_k1(dev, timed, k1)
+    k1["sums"]["court"] = phase_court_k1(dev, timed, k1)
     k2 = phase_k2(dev)
     phase_model(dev)
     by_path = {"ball": phase_slice()}
@@ -1638,6 +1972,8 @@ def main() -> None:
     fast = phase_fast(fast_frames, smi)
     by_path.update({k: {name: v[name] for name in ("conv3x3_bn_act", "heatmap_cc")}
                     for k, v in fast.items()})
+    phase_court_decisive()
+    by_path.update(phase_court(synthetic_players(128, seed=9), smi))
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

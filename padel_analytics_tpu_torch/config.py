@@ -65,7 +65,7 @@ class PlayerKeypointsTrackerConfig:
 class CourtKeypointsTrackerConfig:
     """Court 12-keypoint detection (reference: 'fixed' user keypoints, a
     'yolo' pose model with a hard-coded index remap, or a 'resnet' 24-dim
-    sigmoid regression). The port runs the fixed mode only so far."""
+    sigmoid regression)."""
 
     model_path: Optional[str] = None
     model_type: str = "yolo"  # "resnet" | "yolo"

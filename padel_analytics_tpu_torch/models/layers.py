@@ -92,11 +92,12 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 
 def lecun_normal_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from `generator`: N(0, 1/fan_in) conv weights, zero
-    conv biases, identity BatchNorm (the JAX package's init, untruncated)."""
+    """Random weights from `generator`: N(0, 1/fan_in) conv and linear
+    weights, zero biases, identity BatchNorm (the JAX package's init,
+    untruncated)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                                / math.sqrt(fan_in))

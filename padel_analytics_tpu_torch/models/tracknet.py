@@ -8,7 +8,10 @@ stride-1 3x3 ConvBNs run through kernel K1 on CUDA. Submodule names equal
 the Flax tree's and the reference checkpoint's (``down_block_1.conv_1.conv``,
 ``...bn``, ``predictor``). With ``subpixel_up`` each up block's first conv
 runs the JAX package's exact low-resolution rewrite (`_SubpixelUpConvBN`),
-whose skip half also goes through K1. InpaintNet is not ported yet.
+whose skip half also goes through K1.
+
+`InpaintNet` is the reference's 1-D conv U-Net over windows of ball
+coordinates; it holds no 3x3 2-D conv and runs plain torch (``F.conv1d``).
 """
 
 from __future__ import annotations
@@ -157,6 +160,53 @@ class TrackNet(nn.Module):
         y = F.conv2d(x.permute(0, 3, 1, 2), self.predictor.weight.to(x.dtype),
                      self.predictor.bias.to(x.dtype))
         return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
+
+
+class _Conv1DBlock(nn.Module):
+    """Conv1d(k=3, padding 1, bias) + LeakyReLU(0.01) over (N, C, L)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv = nn.Conv1d(in_features, features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x, self.conv.weight.to(x.dtype), self.conv.bias.to(x.dtype), padding=1)
+        return F.leaky_relu(y, 0.01)
+
+
+class InpaintNet(nn.Module):
+    """Coordinate inpainting net (the reference's InpaintNet). coords (N, L,
+    2) normalised ball coordinates, mask (N, L, 1) (1 where the trajectory
+    needs inpainting) -> (N, L, 2) fp32 in [0, 1]. Computes in the dtype of
+    its input's cast (`dtype`). Submodule names are the Flax tree's; the
+    reference checkpoint's `buttleneck.conv_{1,2}` load as `bottleneck_{1,2}`
+    (`convert.convert_inpaintnet_checkpoint`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.down_1 = _Conv1DBlock(3, 32)
+        self.down_2 = _Conv1DBlock(32, 64)
+        self.down_3 = _Conv1DBlock(64, 128)
+        self.bottleneck_1 = _Conv1DBlock(128, 256)
+        self.bottleneck_2 = _Conv1DBlock(256, 256)
+        self.up_1 = _Conv1DBlock(384, 128)
+        self.up_2 = _Conv1DBlock(192, 64)
+        self.up_3 = _Conv1DBlock(96, 32)
+        self.predictor = nn.Conv1d(32, 2, 3, padding=1)
+
+    def forward(self, coords: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = torch.cat([coords, mask], dim=-1).permute(0, 2, 1).to(dtype)  # (N, 3, L)
+        x1 = self.down_1(x)
+        x2 = self.down_2(x1)
+        x3 = self.down_3(x2)
+        x = self.bottleneck_2(self.bottleneck_1(x3))
+        x = self.up_1(torch.cat([x, x3], dim=1))
+        x = self.up_2(torch.cat([x, x2], dim=1))
+        x = self.up_3(torch.cat([x, x1], dim=1))
+        y = F.conv1d(x, self.predictor.weight.to(x.dtype), self.predictor.bias.to(x.dtype),
+                     padding=1)
+        return torch.sigmoid(y.float()).permute(0, 2, 1)
 
 
 def make_tracknet(seq_len: int = 8, bg_mode: str = "concat",

@@ -1,5 +1,5 @@
 """Trackers, the fused pipeline and the runner (the ball, players, player-pose
-and fixed-court paths so far)."""
+and court paths)."""
 
 from .ball import BallTracker
 from .base import NoPredictFrames, NoPredictSample, Tracker, TrackingResults

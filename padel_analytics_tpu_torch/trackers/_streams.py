@@ -19,14 +19,17 @@ import torch
 
 class Lanes:
     """One CUDA stream for the upload (and the ingest decode behind it) and
-    one for each sub-step (det, pose, ball)."""
+    one for each sub-step (det, pose, ball, and a model court's)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         cuda = self.device.type == "cuda"
-        self.copy, self.det, self.pose, self.ball = (
-            torch.cuda.Stream(self.device) if cuda else None for _ in range(4)
+        self.copy, self.det, self.pose, self.ball, self.court = (
+            torch.cuda.Stream(self.device) if cuda else None for _ in range(5)
         )
+
+    def all(self) -> tuple:
+        return (self.copy, self.det, self.pose, self.ball, self.court)
 
     @staticmethod
     def on(stream):
@@ -54,14 +57,14 @@ class Lanes:
         run's set-up: plans, medians, tables)."""
         if self.device.type == "cuda":
             current = torch.cuda.current_stream(self.device)
-            for stream in (self.copy, self.det, self.pose, self.ball):
+            for stream in self.all():
                 stream.wait_stream(current)
 
     def current_after_all(self) -> None:
         """Order the current stream's later work after every lane's."""
         if self.device.type == "cuda":
             current = torch.cuda.current_stream(self.device)
-            for stream in (self.copy, self.det, self.pose, self.ball):
+            for stream in self.all():
                 current.wait_stream(stream)
 
 

@@ -11,6 +11,11 @@ reference's behaviour:
 - triangular temporal ensemble with uniform head/tail averaging;
 - heatmap -> coordinate decode with cv2-contour semantics (kernel K2 on
   CUDA), every stride-1 3x3 ConvBN of TrackNet through kernel K1 on CUDA;
+- with an InpaintNet checkpoint, the trajectory's gaps filled: the inpaint
+  mask (`generate_inpaint_mask`, host numpy), InpaintNet over every
+  seq_len-frame window of normalised coordinates, the blend, the COOR_TH
+  clamps and InpaintNet's own overlap ensemble, all on the tracker's device
+  (`_inpaint_pass`);
 - zero-fill for clips shorter than one window.
 
 Replicated quirk (flag-controlled): the reference double-converts its
@@ -21,13 +26,14 @@ TrackNet channel-swapped relative to the rest. `channel_quirk=True`
 Each decoded frame is resized once on the device; windows are assembled on
 the device from a carried frame context; TrackNet, the rolling ensemble
 (carried heatmap buffer) and the decode run per chunk of frames, so only
-(x, y, visibility) come back to the host. Not ported yet: InpaintNet and
-the multi-device path.
+(x, y, visibility) come back to the host. Not ported yet: the multi-device
+path.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 from pathlib import Path
 from typing import Iterable, Optional, Type
 
@@ -35,10 +41,14 @@ import numpy as np
 import torch
 
 from ..config import BallTrackerConfig
-from ..models.convert import convert_tracknet_checkpoint, load_torch_checkpoint
+from ..models.convert import (
+    convert_inpaintnet_checkpoint,
+    convert_tracknet_checkpoint,
+    load_torch_checkpoint,
+)
 from ..models.layers import lecun_normal_
-from ..models.tracknet import make_tracknet
-from ..ops.ensemble import get_ensemble_weight
+from ..models.tracknet import InpaintNet, make_tracknet
+from ..ops.ensemble import get_ensemble_weight, overlap_ensemble_coefficients
 from ..ops.heatmap import decode_heatmaps
 from ..ops.median import median_background
 from ._ballwindow import (
@@ -50,6 +60,31 @@ from ._ballwindow import (
 from ._engine import Engine, pad_batch
 from .base import Tracker
 from .objects import Ball, TrackedObject
+
+
+def generate_inpaint_mask(pred_dict: dict, th_h: float = 30) -> list:
+    """The reference's mask of trajectory gaps to inpaint: a run of invisible
+    frames is inpainted only when the ball was low (y > th_h) on both sides
+    of the gap; otherwise it left the camera's view."""
+    y = np.array(pred_dict["y"])
+    vis = np.array(pred_dict["visibility"])
+    mask = np.zeros_like(y)
+    n = len(vis)
+    i = j = 0
+    while j < n:
+        while i < n - 1 and vis[i] == 1:
+            i += 1
+        j = i
+        while j < n - 1 and vis[j] == 0:
+            j += 1
+        if j == i:
+            break
+        elif i == 0 and y[j] > th_h:
+            mask[:j] = 1
+        elif (i > 1 and y[i - 1] > th_h) and (j < n and y[j] > th_h):
+            mask[i:j] = 1
+        i = j
+    return mask.tolist()
 
 
 class BallTracker(Tracker):
@@ -96,10 +131,9 @@ class BallTracker(Tracker):
                 raise ValueError(f"window_stride must be 1 or seq_len={config.seq_len}, "
                                  f"got {config.window_stride}")
             self.window_stride = config.window_stride
-        if inpainting_model_path:
-            raise NotImplementedError(
-                "InpaintNet is not ported yet (ROADMAP.md Queue 1: InpaintNet)"
-            )
+        # The inpaint pass's clamp: 50 heatmap-diagonal units.
+        self.DELTA_T = 1 / math.sqrt(self.HEIGHT ** 2 + self.WIDTH ** 2)
+        self.COOR_TH = self.DELTA_T * 50
 
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -134,6 +168,18 @@ class BallTracker(Tracker):
         if state_dict is None:
             lecun_normal_(model, torch.Generator().manual_seed(seed))
         self.tracknet = Engine(model, self.device, state_dict)
+
+        # InpaintNet, from a reference checkpoint (tensors and plain values
+        # only, loaded without unpickling code).
+        self.inpaintnet: Optional[Engine] = None
+        self.inpaintnet_seq_len = 16
+        if inpainting_model_path:
+            if not str(inpainting_model_path).endswith((".pt", ".pth")):
+                raise ValueError(f"unsupported InpaintNet checkpoint {inpainting_model_path!r}")
+            istate, iparams = convert_inpaintnet_checkpoint(
+                load_torch_checkpoint(str(inpainting_model_path)))
+            self.inpaintnet_seq_len = int(iparams.get("seq_len", 16))
+            self.inpaintnet = Engine(InpaintNet(), self.device, istate)
 
     def video_info_post_init(self, video_info) -> "BallTracker":
         self.video_info = video_info
@@ -207,12 +253,83 @@ class BallTracker(Tracker):
         if video_len < self.tracknet_seq_len:
             return [Ball(frame=i, xy=(0.0, 0.0), visibility=0) for i in range(video_len)]
         # Heatmap coords to source pixels, with int truncation at both steps.
-        xs = [int(int(x) * w_scaler) for x in xs]
-        ys = [int(int(y) * h_scaler) for y in ys]
+        pred = {
+            "x": [int(int(x) * w_scaler) for x in xs],
+            "y": [int(int(y) * h_scaler) for y in ys],
+            "visibility": [int(v) for v in vs],
+        }
+        return self.balls(pred, video_len)
+
+    def balls(self, pred: dict, video_len: int) -> list[Ball]:
+        """Ball objects of a prediction dict ({'x', 'y', 'visibility'} lists,
+        source pixels), after the inpaint pass when there is an InpaintNet."""
+        if self.inpaintnet is not None:
+            pred = self._inpaint_pass(pred, video_len)
         return [
-            Ball(frame=i, xy=(float(xs[i]), float(ys[i])), visibility=int(vs[i]))
+            Ball(frame=i, xy=(float(pred["x"][i]), float(pred["y"][i])),
+                 visibility=int(pred["visibility"][i]))
             for i in range(video_len)
         ]
+
+    def _inpaint_pass(self, pred: dict, video_len: int) -> dict:
+        """InpaintNet gap filling and its own overlap ensemble
+        (`inpaint_ensemble`), then the coordinates back to source pixels. A
+        clip shorter than the InpaintNet window returns `pred` as it was."""
+        ens = self.inpaint_ensemble(pred, video_len)
+        if ens is None:
+            return pred
+        h, w = self.video_info.height, self.video_info.width
+        # Denormalised in the reference's float order, int(c * WIDTH *
+        # (w / WIDTH)), not int(c * w): the two differ by 1 at truncation
+        # boundaries.
+        w_scaler = w / self.WIDTH
+        h_scaler = h / self.HEIGHT
+        xs = [int(v * self.WIDTH * w_scaler) for v in ens[:, 0]]
+        ys = [int(v * self.HEIGHT * h_scaler) for v in ens[:, 1]]
+        vis = [0 if (x == 0 and y == 0) else 1 for x, y in zip(xs, ys)]
+        return {"frame": list(range(video_len)), "x": xs, "y": ys, "visibility": vis}
+
+    def inpaint_ensemble(self, pred: dict, video_len: int) -> Optional[np.ndarray]:
+        """(video_len, 2) fp32 normalised coordinates after InpaintNet, the
+        blend, the COOR_TH clamps and the overlap ensemble, computed on the
+        tracker's device in one call over every window of the clip; None for
+        a clip shorter than the window L.
+
+        Window w holds frames [w, w + L); frame f's ensemble is
+        sum_j coef[f, j] * blended[f - (L-1) + j, (L-1) - j], summed in j
+        order (the JAX package's order; it ran the windows in chunks of 64
+        only so that XLA compiles once), with windows outside [0, N_w)
+        zero."""
+        seq_len = self.inpaintnet_seq_len
+        h, w = self.video_info.height, self.video_info.width
+        mask_list = generate_inpaint_mask(pred, th_h=h * 0.05)
+        if video_len < seq_len:
+            return None
+        # Normalised by the source's size, on the host in fp32 as the
+        # reference's dataset does.
+        coords = np.stack([np.asarray(pred["x"], np.float32) / w,
+                           np.asarray(pred["y"], np.float32) / h], axis=-1)
+        mask = np.asarray(mask_list, np.float32)
+        coef = overlap_ensemble_coefficients(video_len, seq_len, self.EVAL_MODE)
+        dev = self.device
+        num_windows = video_len - seq_len + 1
+        coor_th = self.COOR_TH
+        with torch.inference_mode():
+            coords_d, mask_d, coef_d = (torch.from_numpy(a).to(dev) for a in (coords, mask, coef))
+            idx = (torch.arange(num_windows, device=dev)[:, None]
+                   + torch.arange(seq_len, device=dev)[None, :])
+            wc, wm = coords_d[idx], mask_d[idx][..., None]  # (N_w, L, 2), (N_w, L, 1)
+            out = self.inpaintnet.model(wc, wm, self.compute_dtype)
+            blended = out * wm + wc * (1.0 - wm)
+            th = (blended[..., 0] < coor_th) & (blended[..., 1] < coor_th)
+            blended = torch.where(th[..., None], 0.0, blended)
+            # L-1 zero windows before the first and after the last.
+            pad = blended.new_zeros((seq_len - 1, seq_len, 2))
+            buf = torch.cat([pad, blended, pad], dim=0)  # (video_len + L - 1, L, 2)
+            ens = sum(coef_d[:, j, None] * buf[j: j + video_len, seq_len - 1 - j]
+                      for j in range(seq_len))
+            th2 = (ens[..., 0] < coor_th) & (ens[..., 1] < coor_th)
+            return torch.where(th2[..., None], 0.0, ens).cpu().numpy()
 
     def _coef_row(self, f: int, video_len: Optional[int]) -> np.ndarray:
         """One row of the overlap-ensemble coefficient table. `video_len`

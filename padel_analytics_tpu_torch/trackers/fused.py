@@ -1,5 +1,5 @@
-"""Fused multi-tracker pipeline: one upload per chunk of frames, three
-sub-steps on three CUDA streams sharing it.
+"""Fused multi-tracker pipeline: one upload per chunk of frames, three or
+four sub-steps on their own CUDA streams sharing it.
 
 Counterpart of ``padel_analytics_tpu/trackers/fused.py`` (`FusedPipeline.run`
 and `measure_device_split`). The per-tracker runner pays one decode, one
@@ -13,13 +13,20 @@ device once, and consumed by:
   frames (B, H, W, 3) uint8 on the device   [one H2D copy, copy stream]
     ├── det  (stream): letterbox -> YOLOv8 -> NMS candidates  ┐ each ends in
     ├── pose (stream): squash -> YOLOv8-pose -> NMS candidates│ ONE packed
-    └── ball (stream): resize + carried 7-frame context ->    │ buffer, one
-          TrackNet windows -> rolling ensemble -> decode (K2) ┘ D2H copy
+    ├── ball (stream): resize + carried 7-frame context ->    │ buffer, one
+    │     TrackNet windows -> rolling ensemble -> decode (K2) │ D2H copy
+    └── court (stream, a model court only): squash ->         │
+          YOLOv8-pose (12 keypoints) -> NMS candidates, or    │
+          ResNet-50 -> 12 keypoints                           ┘
 
 Each sub-step reuses its tracker's own device half (`device_step`) and its
 results are finished on the host by the tracker's host half (`host_step`:
 the greedy NMS pass, unletterbox, clip, polygon gate, keypoint rescale),
-then ByteTrack, at the drain. Up to two chunks stay in flight: the drain of
+then ByteTrack, at the drain; the court's keypoints are scaled from wire to
+source pixels there ('yolo') or on the device ('resnet'). A fixed court
+costs nothing. With an InpaintNet the ball tracker's inpaint pass runs over
+the whole clip at the end (so the results cannot stream). Up to two chunks
+stay in flight: the drain of
 chunk k-2 waits on its events while chunks k-1 and k run on the device, and
 the next chunk's decode and pack run in a prefetch worker meanwhile. No
 step between the upload and the drain synchronises the host: the ensemble
@@ -41,8 +48,7 @@ frames: no ensemble, no carry, no lag; the last partial window sees zero
 frames.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: association='device', a model-based court, `run_staged` and
-`run_mesh`.
+item: association='device', `run_staged` and `run_mesh`.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..models.resnet import imagenet_stats
 from ..ops.area import resize_area, resize_area_planes
 from ..ops.color import i420_to_rgb, planes_to_i420, rgb_to_i420
 from ..ops.ensemble import overlap_ensemble_coefficients
@@ -129,14 +136,18 @@ class _ResultBuilder:
         self.h_scaler = src_hw[0] / ball.HEIGHT
         self._det_chunks: list = []  # (boxes, scores, keep_mask, ids)
         self._pose_chunks: list = []  # (kpts, valid)
+        self._court_chunks: list = []  # (kpts, valid)
         self._det_ready = 0
         self._pose_ready = 0
+        self._court_ready = 0
         self.players_objs: list[Players] = []
         self.pose_objs: list[PlayersKeypoints] = []
+        self.court_objs: list = []
         self.ball_x: list[int] = []
         self.ball_y: list[int] = []
         self.ball_v: list[int] = []
-        self.stream = stream
+        # The inpaint pass needs the whole clip: nothing streams before it.
+        self.stream = stream if ball.inpaintnet is None else None
         self._emitted = 0
 
     def add_det(self, boxes, scores, valid) -> None:
@@ -163,6 +174,12 @@ class _ResultBuilder:
         self.ball_y.append(y)
         self.ball_v.append(v)
 
+    def add_court(self, kpts, valid) -> None:
+        """(F, 12, 2) source-pixel keypoints and (F,) validity of a model
+        court."""
+        self._court_chunks.append((kpts, valid))
+        self._court_ready += kpts.shape[0]
+
     def _materialize(self) -> None:
         for boxes, scores, keep_mask, ids in self._det_chunks:
             for f in range(boxes.shape[0]):
@@ -183,6 +200,9 @@ class _ResultBuilder:
                     for d in range(kpts.shape[1]) if valid[f, d]
                 ]))
         self._pose_chunks.clear()
+        for kpts, valid in self._court_chunks:
+            self.court_objs += self.pipeline.court.to_keypoints(kpts, valid)
+        self._court_chunks.clear()
 
     def _ball_obj(self, i: int) -> Ball:
         # Int truncation at both scale steps, as the per-tracker path.
@@ -190,34 +210,45 @@ class _ResultBuilder:
         y = int(int(self.ball_y[i]) * self.h_scaler)
         return Ball(frame=i, xy=(float(x), float(y)), visibility=int(self.ball_v[i]))
 
-    def _court(self, count: int):
-        court = self.pipeline.court
-        return None if court is None else [court.fixed_keypoints_detection] * count
+    def _court(self, lo: int, hi: int):
+        mode = self.pipeline.court_mode
+        if mode is None:
+            return None
+        if mode == "fixed":
+            return [self.pipeline.court.fixed_keypoints_detection] * (hi - lo)
+        return self.court_objs[lo:hi]
 
     def maybe_emit(self) -> None:
         """Push newly finalized frames to the stream callback."""
         if self.stream is None:
             return
         n_ready = min(self._det_ready, self._pose_ready, len(self.ball_x))
+        if self.pipeline.court_mode in ("yolo", "resnet"):
+            n_ready = min(n_ready, self._court_ready)
         if n_ready <= self._emitted:
             return
         self._materialize()
         lo, hi = self._emitted, n_ready
         self.stream(self.players_objs[lo:hi], self.pose_objs[lo:hi],
-                    [self._ball_obj(i) for i in range(lo, hi)], self._court(hi - lo))
+                    [self._ball_obj(i) for i in range(lo, hi)], self._court(lo, hi))
         self._emitted = n_ready
 
     def finish(self) -> dict[str, list]:
         self._materialize()
         if len(self.ball_x) != self.n:
             raise RuntimeError(f"emitted {len(self.ball_x)} ball rows for {self.n} frames")
-        results = {
-            "players": self.players_objs,
-            "players_keypoints": self.pose_objs,
-            "ball": [self._ball_obj(i) for i in range(self.n)],
-        }
-        court = self._court(self.n)
+        balls = [self._ball_obj(i) for i in range(self.n)]
+        ball = self.pipeline.ball
+        if ball.inpaintnet is not None:  # the inpaint pass over the whole clip
+            balls = ball.balls({"x": [int(b.xy[0]) for b in balls],
+                                "y": [int(b.xy[1]) for b in balls],
+                                "visibility": [b.visibility for b in balls]}, self.n)
+        results = {"players": self.players_objs, "players_keypoints": self.pose_objs,
+                   "ball": balls}
+        court = self._court(0, self.n)
         if court is not None:
+            if len(court) != self.n:
+                raise RuntimeError(f"{len(court)} court results for {self.n} frames")
             results["keypoints"] = court
         return results
 
@@ -246,6 +277,7 @@ class _Chunk(NamedTuple):
     det: Optional[_Download]
     pose: Optional[_Download]
     ball: _Download
+    court: Optional[_Download]  # a model court's chunk
 
 
 class _BallState(NamedTuple):
@@ -260,8 +292,8 @@ class _BallState(NamedTuple):
 
 
 class FusedPipeline:
-    """Runs the players, pose and ball trackers (and a fixed court) over one
-    upload per chunk of frames."""
+    """Runs the players, pose and ball trackers (and a court, fixed or from
+    a model) over one upload per chunk of frames."""
 
     def __init__(
         self,
@@ -278,18 +310,23 @@ class FusedPipeline:
         self.check_options(ingest, association, ball_stride, ball.tracknet_seq_len, chunk)
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        devices = {torch.device(t.device) for t in (players, pose, ball)}
+        # 'fixed' costs nothing; 'yolo' and 'resnet' run as a fourth
+        # sub-step over the shared upload (a moving camera's court).
+        if court is None:
+            self.court_mode = None
+        elif court.fixed_keypoints_detection is not None:
+            self.court_mode = "fixed"
+        else:
+            self.court_mode = court.model_type
+        models = (players, pose, ball) + ((court,) if self.court_mode in ("yolo", "resnet")
+                                          else ())
+        devices = {torch.device(t.device) for t in models}
         if len(devices) != 1:
             raise ValueError(f"the trackers lie on different devices: {sorted(map(str, devices))}")
-        if court is not None and court.fixed_keypoints_detection is None:
-            raise NotImplementedError(
-                "a model-based court is not ported yet (ROADMAP.md Queue 1 item 9)"
-            )
         self.players = players
         self.pose = pose
         self.ball = ball
         self.court = court
-        self.court_mode = None if court is None else "fixed"
         self.chunk = chunk
         # 'i420': frames cross the host->device link as I420 planes (1.5
         # bytes a pixel against RGB's 3), rebuilt on the device bit-exactly
@@ -321,7 +358,8 @@ class FusedPipeline:
             raise ValueError(f"unknown association {association!r}")
         if association == "device":
             raise NotImplementedError(
-                "the device association scan is not ported yet (ROADMAP.md Queue 1 item 8)"
+                "the device association scan is not ported yet (ROADMAP.md Queue 1 item 11b, "
+                "beside run_mesh, its only default user)"
             )
         if seq_len is not None and ball_stride not in (1, seq_len):
             raise ValueError(f"ball_stride must be 1 (the reference's stride-1 ensemble) or "
@@ -459,11 +497,26 @@ class FusedPipeline:
 
         return ball_step
 
+    def _build_court_step(self, src_hw: tuple[int, int]):
+        """The fourth sub-step, a model court's device half over the wire
+        frames. 'resnet' scales its keypoints from wire to source pixels on
+        the device; 'yolo' at the drain (`_unpack_frames`), after the host's
+        NMS pass. None for no court or a fixed one."""
+        if self.court_mode not in ("yolo", "resnet"):
+            return None
+        court = self.court
+        if self.court_mode == "yolo":
+            return court.device_step
+        _, sx, sy = self._wire(src_hw)
+        to_source = torch.tensor([sx, sy], dtype=torch.float32, device=self.device)
+        return lambda frames: court.device_step(frames, to_source)
+
     def _get_steps(self, src_hw: tuple[int, int]):
-        """(decode, det, pose, ball) steps, cached per (resolution, chunk,
-        bg_mode, ingest, wire, court, ball stride). Uploads every resize
-        plan's operands (dense matrices or bands, as each pass takes them)
-        to the device here, on the current stream, so no step uploads any."""
+        """(decode, det, pose, ball, court or None) steps, cached per
+        (resolution, chunk, bg_mode, ingest, wire, court, ball stride).
+        Uploads every resize plan's operands (dense matrices or bands, as
+        each pass takes them) and the court's constants to the device here,
+        on the current stream, so no step uploads any."""
         key = (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest,
                self._wire(src_hw)[0], self.court_mode, self.ball_stride)
         if key not in self._step_cache:
@@ -472,12 +525,21 @@ class FusedPipeline:
                 self._build_det_step(src_hw),
                 self._build_pose_step(src_hw),
                 self._build_ball_step(src_hw),
+                self._build_court_step(src_hw),
             )
         wire = self._wire(src_hw)[0]
         size = self.pose.train_image_size
-        for plan in (letterbox_plan(wire, self.players.IMGSZ).plan,
-                     resize_plan(wire, (size, size), "pil_bicubic"),
-                     resize_plan(wire, (self.ball.HEIGHT, self.ball.WIDTH), "pil_bicubic")):
+        plans = [letterbox_plan(wire, self.players.IMGSZ).plan,
+                 resize_plan(wire, (size, size), "pil_bicubic"),
+                 resize_plan(wire, (self.ball.HEIGHT, self.ball.WIDTH), "pil_bicubic")]
+        if self.court_mode == "yolo":
+            size = self.court.TRAIN_IMAGE_SIZE
+            plans.append(resize_plan(wire, (size, size), "pil_bicubic"))
+        elif self.court_mode == "resnet":
+            size = self.court.RESNET_SIZE
+            plans.append(resize_plan(wire, (size, size), "pil_bilinear"))
+            imagenet_stats(self.device)
+        for plan in plans:
             plan.upload(self.device)
         return self._step_cache[key]
 
@@ -589,7 +651,7 @@ class FusedPipeline:
         lane, each sub-step on its own lane after them, each ending in one
         D2H copy of its packed buffer. Returns (the chunk's record, the new
         ball state)."""
-        decode, det_step, pose_step, ball_step = steps
+        decode, det_step, pose_step, ball_step, court_step = steps
         lanes, b = self.lanes, self.chunk
         with lanes.on(lanes.copy):
             frames = decode(ring.upload(k))
@@ -616,24 +678,31 @@ class FusedPipeline:
         det = launch(lanes.det, det_step) if n_real else None
         pose = launch(lanes.pose, pose_step) if n_real else None
         ball_download = launch(lanes.ball, ball)  # sets the new state
-        return _Chunk(lo, n_real, det, pose, ball_download), state
+        court = launch(lanes.court, court_step) if n_real and court_step else None
+        return _Chunk(lo, n_real, det, pose, ball_download, court), state
 
-    def _unpack_frames(self, results, det: _Download, pose: _Download,
-                       n_real: int, src_hw) -> None:
-        """The det and pose downloads of a chunk's n_real clip frames, once
+    def _unpack_frames(self, results, chunk: _Chunk, src_hw) -> None:
+        """The det, pose and court downloads of a chunk's clip frames, once
         done, through the trackers' host halves into the run's `results`;
-        the det boxes from wire to source pixels where the wire is smaller."""
+        the det boxes and the yolo court's keypoints from wire to source
+        pixels where the wire is smaller."""
+        n_real = chunk.n_real
         wire = self._wire(src_hw)
-        results.add_det(*self.players.host_step(*det.take(n_real), src_hw,
+        results.add_det(*self.players.host_step(*chunk.det.take(n_real), src_hw,
                                                 wire=wire if wire[0] != tuple(src_hw) else None))
-        kpts, _, valid = self.pose.host_step(*pose.take(n_real), src_hw)
+        kpts, _, valid = self.pose.host_step(*chunk.pose.take(n_real), src_hw)
         results.add_pose(kpts, valid)
+        if chunk.court is not None:
+            kpts, valid = self.court.host_step(*chunk.court.take(n_real), wire[0])
+            if self.court_mode == "yolo":
+                kpts = kpts * np.asarray(wire[1:], np.float32)  # fp32, as on the device
+            results.add_court(kpts, valid)
 
     def _drain(self, chunk: _Chunk, builder: _ResultBuilder, n: int, src_hw) -> None:
         """Wait for a chunk's downloads, then its host work: the trackers'
         host halves, ByteTrack and the ball rows."""
         if chunk.n_real:
-            self._unpack_frames(builder, chunk.det, chunk.pose, chunk.n_real, src_hw)
+            self._unpack_frames(builder, chunk, src_hw)
         (packed,) = unpack_rows(*chunk.ball.take(self.chunk))
         emit_lo = chunk.lo - self._ball_off
         for j, (x, y, v) in enumerate(packed.tolist()):
@@ -655,16 +724,17 @@ class FusedPipeline:
         events after an untimed warm-up. Meant for a warm pipeline.
 
         Returns {"pack_s", "upload_s", "det_s", "pose_s", "ball_s",
-        "frames", "device_ms_per_frame", "device_fps"} in seconds (the last
-        two over the three sub-steps), or None when the clip is shorter than
-        one chunk. On the CPU the times are host wall times."""
+        ["court_s",] "frames", "device_ms_per_frame", "device_fps"} in
+        seconds (the last two over the sub-steps; court_s with a model
+        court), or None when the clip is shorter than one chunk. On the CPU
+        the times are host wall times."""
         b = self.chunk
         with torch.inference_mode():
             fw, _, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
             if n < b:
                 return None
             self.lanes.current_after_all()  # the phases run on the current stream
-            decode, det_step, pose_step, ball_step = steps
+            decode, det_step, pose_step, ball_step, court_step = steps
             n_chunks = min(n_chunks, n // b)
             ring = self._ring(src_hw)
             timer = DeviceTimer(self.device)
@@ -692,12 +762,14 @@ class FusedPipeline:
                 "pose_s": lambda: [pose_step(f) for f in resident],
                 "ball_s": ball_phase,
             }
+            if court_step is not None:
+                phases["court_s"] = lambda: [court_step(f) for f in resident]
             for name, phase in phases.items():
                 phase()  # warm-up
                 timer.start()
                 phase()
                 raw[name] = timer.stop()
-        compute_s = raw["det_s"] + raw["pose_s"] + raw["ball_s"]
+        compute_s = sum(raw[name] for name in phases)
         frames = n_chunks * b
         return {**raw, "frames": frames, "device_ms_per_frame": compute_s / frames * 1e3,
                 "device_fps": frames / max(compute_s, 1e-9)}

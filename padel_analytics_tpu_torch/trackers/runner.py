@@ -4,8 +4,8 @@ tracker, then the draw / collect pass.
 Counterpart of ``padel_analytics_tpu/trackers/runner.py``. The video is
 decoded once into a `FrameStore` (RAM up to a cap, re-decode beyond). With
 `fused=True` and the players, pose and ball trackers (and optionally a
-fixed court) present with empty caches, one `FusedPipeline` pass serves
-them all (`stage_times["fused_inference"]`). Otherwise each tracker skips
+court, fixed or from a model) present with empty caches, one
+`FusedPipeline` pass serves them all (`stage_times["fused_inference"]`). Otherwise each tracker skips
 inference when its JSON cache already holds predictions, else runs
 `predict_and_update` over the store (`stage_times[name]`). Every tracker
 that inferred saves its cache.
@@ -17,7 +17,8 @@ projections feed `DataAnalytics` when `collect_data=True`; with
 `render=False` the projections alone feed it, from the stored predictions,
 with no decode and no OpenCV (`collect_data_only`); with neither, the pass
 is skipped. Both give the same `data_analytics`. `fused_stream_draw=True` draws on a worker thread while
-the fused pass runs (`_StreamingDrawer`). A runner asked to render where
+the fused pass runs (`_StreamingDrawer`), except with an InpaintNet, whose
+pass needs the whole clip: the draw then follows the fused pass. A runner asked to render where
 OpenCV is absent raises ImportError when it is constructed.
 """
 
@@ -262,7 +263,7 @@ class TrackingRunner:
         self.draw_and_collect_data()
 
     def _try_fused_run(self) -> bool:
-        """Run players + pose + ball (+ fixed court) in the single-upload
+        """Run players + pose + ball (+ court) in the single-upload
         fused pipeline. Returns False, for the per-tracker path, when the
         tracker set does not fit it, when any of the three already holds
         cached results, or when the clip is shorter than a TrackNet window
@@ -293,7 +294,8 @@ class TrackingRunner:
             )
         drawer, stream = None, None
         self._fused_drew = False
-        if self.fused_stream_draw:
+        # The inpaint pass finishes the ball results only at the end.
+        if self.fused_stream_draw and by_name["ball_tracker"].inpaintnet is None:
             drawer = _StreamingDrawer(self)
             targets = [by_name[name].results.predictions for name in needed]
             if court is not None:

@@ -26,6 +26,7 @@ from padel_analytics_tpu_torch.trackers import (
     PlayerKeypointsTracker,
     PlayerTracker,
 )
+from padel_analytics_tpu_torch.trackers.court_keypoints import POINTS_MAPPER
 from padel_analytics_tpu_torch.utils.video import VideoInfo
 
 W, H, N = 128, 96, 26
@@ -64,28 +65,37 @@ def clip_frames(rng, n: int = N, h: int = H, w: int = W) -> list[np.ndarray]:
     return frames
 
 
-def cell_geometry(h: int, w: int, pose: bool) -> dict[str, np.ndarray]:
-    """Integer boxes (and keypoints) around the centres of the 8x8 cells of
-    an (h, w) model input, so every value is exact in float32."""
+def cell_geometry(h: int, w: int, pose: bool, nk: int = 13) -> dict[str, np.ndarray]:
+    """Integer boxes (and nk keypoints) around the centres of the 8x8 cells
+    of an (h, w) model input, so every value is exact in float32. The 13
+    pose keypoints lie on a line; the court's 12 (nk = 12) are COURT's shape
+    around the cell centre, keypoint k where the court id POINTS_MAPPER[k]
+    lies, so a homography from them is a court's."""
     cy, cx = np.mgrid[0: h // 8, 0: w // 8].reshape(2, -1) * 8.0 + 4.0
     out = {"boxes": np.stack([cx - 6, cy - 10, cx + 6, cy + 14], -1)}
-    if pose:
-        k = np.arange(13)
+    if pose and nk == 12:
+        offsets = np.array([COURT[POINTS_MAPPER[k]] for k in range(12)], float) - (64, 51)
+        out["kpts"] = np.stack([cx[:, None] + offsets[:, 0], cy[:, None] + offsets[:, 1],
+                                np.full((cx.size, nk), 0.5)], -1)
+    elif pose:
+        k = np.arange(nk)
         out["kpts"] = np.stack([cx[:, None] + k, cy[:, None] + 2 * k,
-                                np.full((cx.size, 13), 0.5)], -1)
+                                np.full((cx.size, nk), 0.5)], -1)
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
 class CellDetector(torch.nn.Module):
     """Score 0.9 where an 8x8 cell of the input holds a bright pixel (the
-    brightest channel, an exact maximum), else 0.1. The geometry is
-    uploaded once per input size and device: an upload from pageable memory
-    inside a forward would synchronise the host with the card and hide a
-    race between the fused pipeline's streams."""
+    brightest channel, an exact maximum), else 0.1; with `pose`, `nk`
+    keypoints a cell (13 for the players' pose, 12 for the court). The
+    geometry is uploaded once per input size and device: an upload from
+    pageable memory inside a forward would synchronise the host with the
+    card and hide a race between the fused pipeline's streams."""
 
-    def __init__(self, pose: bool):
+    def __init__(self, pose: bool, nk: int = 13):
         super().__init__()
         self.pose = pose
+        self.nk = nk
         self._geometry: dict = {}
 
     def forward(self, x):
@@ -93,7 +103,7 @@ class CellDetector(torch.nn.Module):
         key = (h, w, x.device)
         if key not in self._geometry:
             self._geometry[key] = {k: torch.from_numpy(v).to(x.device)
-                                   for k, v in cell_geometry(h, w, self.pose).items()}
+                                   for k, v in cell_geometry(h, w, self.pose, self.nk).items()}
         cells = x.amax(dim=-1).reshape(b, h // 8, 8, w // 8, 8).amax(dim=(2, 4))
         out = {k: v.expand(b, *v.shape) for k, v in self._geometry[key].items()}
         out["scores"] = torch.where(cells.reshape(b, -1, 1) > BRIGHT, 0.9, 0.1).float()
@@ -140,6 +150,39 @@ def make_trackers(device="cpu", n: int = N, batch: int = 4, save_dir=None, court
     for t in trackers:
         t.video_info_post_init(info)
     return tuple(trackers) if court else (*trackers, None)
+
+
+#: The model court's input sizes in these tests ('yolo' squash, 'resnet').
+COURT_YOLO_SIZE, COURT_RESNET_SIZE = 64, 32
+#: Frames of `court_clip` with nothing bright in them: no court clears conf.
+BLANK = (5, 6, 17)
+
+
+def court_clip(rng, n: int = N) -> list[np.ndarray]:
+    """clip_frames without the figure standing above the court (its rows
+    dark), so the first bright cell, whose candidate the court fake keeps,
+    is the crossing ball's and the court moves from frame to frame; the
+    frames of BLANK dark throughout."""
+    frames = clip_frames(rng, n)
+    for k, f in enumerate(frames):
+        rows = slice(0, H) if k in BLANK else slice(0, 16)
+        f[rows] = 30 + rng.integers(0, 10, f[rows].shape, dtype=np.uint8)
+    return frames
+
+
+def model_court(mode: str, device="cpu", batch: int = 4, n: int = N,
+                compute_dtype: torch.dtype = torch.float32, **kwargs) -> KeypointsTracker:
+    """A model court ('yolo': YOLOv8n-pose with 12 keypoints at a 64 squash;
+    'resnet': ResNet-50 at 32), fp32 unless told (K1 takes bf16 on the
+    card), the video info set. For 'yolo' the tests plug in
+    CellDetector(pose=True, nk=12)."""
+    class Small(KeypointsTracker):
+        TRAIN_IMAGE_SIZE = COURT_YOLO_SIZE
+        RESNET_SIZE = COURT_RESNET_SIZE
+
+    t = Small(None, batch_size=batch, model_type=mode, model_variant="n",
+              compute_dtype=compute_dtype, device=device, **kwargs)
+    return t.video_info_post_init(VideoInfo(width=W, height=H, fps=10.0, total_frames=n))
 
 
 def court_keypoints() -> Keypoints:

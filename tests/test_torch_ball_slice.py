@@ -139,13 +139,34 @@ def test_runner_refuses_unported_passes(tmp_path, rng):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
                        fused_association="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BallTracker(None, inpainting_model_path="inpaint.pt", device="cpu")
     # The 'derived' ingest and the nonoverlap stride, once refused, are taken.
     for kwargs in ({"fused_ingest": "derived"}, {"fused_ball_stride": 8}):
         runner = TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
                                 **kwargs)
         assert runner.fused_ingest == kwargs.get("fused_ingest", "i420")
+
+
+def test_formerly_unported_inpaintnet_runs(tmp_path, rng):
+    """InpaintNet, which raised NotImplementedError before it was ported,
+    loads from a reference checkpoint and runs through the per-tracker
+    runner: one Ball a frame, the pass on; a name that is no .pt refuses."""
+    from padel_analytics_tpu_torch.models.layers import lecun_normal_
+    from padel_analytics_tpu_torch.models.tracknet import InpaintNet
+
+    clip = tmp_path / "clip.mp4"
+    _write_clip(rng, clip, 20)
+    sd = lecun_normal_(InpaintNet(), torch.Generator().manual_seed(1)).state_dict()
+    sd = {k.replace("bottleneck_1.", "buttleneck.conv_1.").replace(
+        "bottleneck_2.", "buttleneck.conv_2."): v for k, v in sd.items()}
+    torch.save({"model": sd, "param_dict": {"seq_len": 16}}, tmp_path / "inpaint.pt")
+    tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
+                          config=BallTrackerConfig(height=16, width=32,
+                                                   inpainting_model_path=str(tmp_path / "inpaint.pt")))
+    assert tracker.inpaintnet is not None and tracker.inpaintnet_seq_len == 16
+    TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False).run()
+    assert [b.frame for b in tracker.results] == list(range(20))
+    with pytest.raises(ValueError, match="InpaintNet"):
+        BallTracker(None, inpainting_model_path="inpaint.bin", device="cpu")
 
 
 def test_short_clip_zero_fills(tmp_path, rng):

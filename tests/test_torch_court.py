@@ -1,12 +1,15 @@
 """The port's fixed court against the JAX package: `Keypoint(s)` JSON
 byte-equal, the fixed `KeypointsTracker` one detection per frame through
 both entry points, the court fields of `PipelineConfig.from_flat` and the
-constants equal. The model-based modes are not ported and raise."""
+constants equal. The model-based modes construct and run here; their
+parity with the JAX package is in tests/test_torch_court_models.py and
+tests/test_torch_fused_court.py."""
 
 import json
 
 import numpy as np
 import pytest
+import torch
 
 import padel_analytics_tpu.constants as jax_constants
 import padel_analytics_tpu_torch.constants as constants
@@ -18,6 +21,7 @@ from padel_analytics_tpu.trackers.court_keypoints import POINTS_MAPPER as JAX_PO
 from padel_analytics_tpu_torch.config import CourtKeypointsTrackerConfig, PipelineConfig
 from padel_analytics_tpu_torch.trackers import Keypoint, Keypoints, KeypointsTracker
 from padel_analytics_tpu_torch.trackers.court_keypoints import POINTS_MAPPER
+from padel_analytics_tpu_torch.utils.video import VideoInfo
 
 
 def _points(rng):
@@ -58,11 +62,20 @@ def test_fixed_tracker_predicts_every_frame(tmp_path, rng):
 
 
 @pytest.mark.parametrize("model_type", ["yolo", "resnet"])
-def test_model_based_court_raises(model_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        KeypointsTracker(model_type=model_type)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        KeypointsTracker(config=CourtKeypointsTrackerConfig(model_type=model_type))
+def test_formerly_unported_court_modes_run(model_type):
+    """The model-based modes, which raised NotImplementedError before they
+    were ported, construct (from the keyword or the config, on the CPU when
+    asked) and predict one Keypoints a frame through their entry point."""
+    tracker = KeypointsTracker(config=CourtKeypointsTrackerConfig(model_type=model_type,
+                                                                  model_variant="n"),
+                               device="cpu", compute_dtype=torch.float32)
+    assert tracker.model_type == model_type and tracker.engine is not None
+    assert tracker.fixed_keypoints_detection is None
+    tracker.video_info_post_init(VideoInfo(width=64, height=48, fps=10.0, total_frames=3))
+    tracker.TRAIN_IMAGE_SIZE, tracker.RESNET_SIZE = 64, 32
+    frames = [np.full((48, 64, 3), 40 * i, np.uint8) for i in range(3)]
+    tracker.predict_and_update(iter(frames))
+    assert len(tracker.results) == 3 and all(isinstance(k, Keypoints) for k in tracker.results)
     with pytest.raises(ValueError):
         KeypointsTracker(model_type="other")
 

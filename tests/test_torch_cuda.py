@@ -1,8 +1,9 @@
 """Kernels K1 and K2 on the card against their plain PyTorch versions,
-YOLOv8m, the subpixel TrackNet, the banded resize and the NMS on the card
-against their CPU results, and the fused pipeline on the card against the
-per-tracker paths and its CPU run (decisive fakes), the fast configuration
-('derived' ingest, nonoverlap ball stride) included.
+YOLOv8m, ResNet-50, the subpixel TrackNet, the banded resize and the NMS on
+the card against their CPU results, and the fused pipeline on the card
+against the per-tracker paths and its CPU run (decisive fakes), the fast
+configuration ('derived' ingest, nonoverlap ball stride), the model court
+and InpaintNet included.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -15,12 +16,29 @@ import pytest
 import torch
 
 from _k2_cases import SMALL, dense, small
-from _torch_fused_cases import N, caches, clip_frames, make_trackers, per_tracker
+from _torch_fused_cases import (
+    BLANK,
+    H,
+    N,
+    W,
+    BrightTrackNet,
+    CellDetector,
+    caches,
+    clip_frames,
+    court_clip,
+    make_trackers,
+    model_court,
+    per_tracker,
+)
 from padel_analytics_tpu_torch import _build
+from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.models.layers import lecun_normal_
+from padel_analytics_tpu_torch.models.resnet import ResNet50Regressor, imagenet_normalize
+from padel_analytics_tpu_torch.models.tracknet import InpaintNet
 from padel_analytics_tpu_torch.models.yolov8 import YOLOv8
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms
-from padel_analytics_tpu_torch.trackers import FusedPipeline
+from padel_analytics_tpu_torch.trackers import BallTracker, FusedPipeline
+from padel_analytics_tpu_torch.utils.video import VideoInfo
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +94,15 @@ def _bf16_close(got, want):
         (2, 288, 512, 64, 64, "none"),
         (2, 160, 160, 48, 48, "silu"),  # P2 of pose @640
         (1, 20, 20, 576, 48, "silu"),   # keypoint head at 20x20
+        # The court YOLOv8m-pose's keypoint head (12 keypoints, c4 = 48) at
+        # 640 and ResNet-50's stride-1 conv2s at 224 (one 16x8 tile covers
+        # the 7x7 map):
+        (2, 80, 80, 192, 48, "silu"),
+        (2, 40, 40, 48, 48, "silu"),
+        (2, 56, 56, 64, 64, "relu"),
+        (2, 28, 28, 128, 128, "relu"),
+        (2, 14, 14, 256, 256, "relu"),
+        (3, 7, 7, 512, 512, "relu"),
     ],
 )
 def test_k1_matches_plain(dev, b, h, w, cin, cout, act):
@@ -333,3 +360,75 @@ def test_fused_fast_on_card_equals_cpu(dev, kwargs):
     got = caches(FusedPipeline(*make_trackers(device=dev), chunk=8, **kwargs)
                  .run(iter(frames), N))
     assert got == want
+
+
+# ResNet-50 logits, bf16 on the card against fp32 on the CPU, over their
+# largest magnitude (chip_smoke.py's bound; measured 0.0060 on the H100).
+RESNET_REL_ATOL = 5e-2
+
+
+def test_resnet50_bf16_matches_fp32(dev):
+    model = _he_normal(ResNet50Regressor(), 17)
+    x = imagenet_normalize(torch.rand((2, 224, 224, 3), generator=torch.Generator().manual_seed(18)))
+    with torch.inference_mode():
+        want = model(x)
+    model.to(dev)
+    before = conv3x3.launches
+    with torch.inference_mode():
+        got = model(x.to(dev, torch.bfloat16)).cpu()
+    assert conv3x3.launches - before == 13
+    assert got.shape == want.shape == (2, 24) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= RESNET_REL_ATOL * float(want.abs().max())
+
+
+def _inpaint_ball(device, path):
+    ball = BallTracker(None, str(path), compute_dtype=torch.float32, device=device,
+                       config=BallTrackerConfig(height=72, width=128, batch_size=4,
+                                                median_max_sample_num=6))
+    ball.tracknet.model = BrightTrackNet()
+    return ball.video_info_post_init(VideoInfo(width=W, height=H, fps=10.0, total_frames=N))
+
+
+def _court_trackers(device, mode, path):
+    players, pose, _, _ = make_trackers(device=device, court=False)
+    # K1 takes bf16: the ResNet court runs in the trackers' default dtype.
+    court = model_court(mode, device=device, compute_dtype=torch.bfloat16)
+    if mode == "yolo":
+        court.engine.model = CellDetector(pose=True, nk=12)
+    else:
+        _he_normal(court.engine.model, 24)
+        with torch.no_grad():
+            court.engine.model.fc.weight.mul_(1e-3)  # logits O(1): live sigmoids
+    return players, pose, _inpaint_ball(device, path), court
+
+
+@pytest.mark.parametrize("mode", ["yolo", "resnet"])
+def test_fused_model_court_and_inpaint_on_card(dev, tmp_path, mode):
+    """The fused pipeline's fourth lane (the model court) and the inpaint
+    pass at its end on the card: the court and the inpainted ball equal the
+    per-tracker paths on the card (the yolo court byte for byte with the
+    decisive fake; the resnet court within 1e-2 px at the same batch) and
+    the yolo run equals the CPU's (a race between five streams would show)."""
+    torch.save({"model": lecun_normal_(InpaintNet(), torch.Generator().manual_seed(3))
+                .state_dict(), "param_dict": {"seq_len": 16}}, tmp_path / "inpaint.pt")
+    frames = court_clip(np.random.default_rng(24))
+    players, pose, ball, court = _court_trackers(dev, mode, tmp_path / "inpaint.pt")
+    sep_ball = ball.predict_frames(iter(frames), total_frames=N)
+    if mode == "yolo":
+        sep_court = [k for lo in range(0, N, 4)
+                     for k in court.predict_sample(np.stack(frames[lo: lo + 4]))]
+    else:
+        sep_court = court.predict_frames(iter(frames))
+    out = FusedPipeline(*_court_trackers(dev, mode, tmp_path / "inpaint.pt"), chunk=4).run(
+        iter(frames), N)
+    assert caches({"b": out["ball"]}) == caches({"b": sep_ball})
+    if mode == "yolo":
+        assert caches({"k": out["keypoints"]}) == caches({"k": sep_court})
+        assert [f for f, k in enumerate(out["keypoints"]) if not k] == list(BLANK)
+        cpu = FusedPipeline(*_court_trackers("cpu", mode, tmp_path / "inpaint.pt"), chunk=4).run(
+            iter(frames), N)
+        assert caches(cpu) == caches(out)
+    else:
+        err = max(abs(p - q) for ka, kb in zip(out["keypoints"], sep_court)
+                  for pa, pb in zip(ka, kb) for p, q in zip(pa.xy, pb.xy))
+        assert err <= 1e-2

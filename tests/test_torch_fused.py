@@ -22,17 +22,20 @@ from _torch_fused_cases import (  # noqa: F401  (one_torch_thread: an autouse fi
     H,
     N,
     W,
+    CellDetector,
     caches,
     clip_frames,
     make_trackers,
+    model_court,
     one_torch_thread,
     per_tracker,
 )
 from padel_analytics_tpu_torch.config import BallTrackerConfig
+from padel_analytics_tpu_torch.models.layers import lecun_normal_
+from padel_analytics_tpu_torch.models.tracknet import InpaintNet
 from padel_analytics_tpu_torch.trackers import (
     BallTracker,
     FusedPipeline,
-    KeypointsTracker,
     TrackingRunner,
 )
 from padel_analytics_tpu_torch.trackers._ballwindow import frame_channels
@@ -237,9 +240,6 @@ def _left_for_later():
     return {
         "device association": lambda: FusedPipeline(players, pose, ball, court,
                                                     association="device"),
-        "model-based court": lambda: KeypointsTracker(model_type="yolo"),
-        "InpaintNet": lambda: BallTracker(None, inpainting_model_path="inpaint.pt",
-                                          device="cpu"),
         "run_staged": lambda: pipe.run_staged(iter([]), 0),
         "run_mesh": lambda: pipe.run_mesh(iter([]), 0, None),
     }
@@ -251,17 +251,45 @@ def test_unported_modes_raise(item):
         _left_for_later()[item]()
 
 
-@pytest.mark.parametrize("kwargs", [{"ingest": "derived", "wire_long_side": 64},
-                                    {"ball_stride": 8}], ids=["derived ingest",
-                                                              "ball_stride=seq_len"])
-def test_formerly_unported_modes_run(rng, kwargs):
-    """The two modes that raised NotImplementedError before they were
-    ported now run: one result a frame for every tracker."""
-    pipe = FusedPipeline(*make_trackers(), chunk=8, **kwargs)
+def test_device_association_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        _left_for_later()["device association"]()
+
+
+def _formerly_unported(tmp_path, name):
+    """(trackers, FusedPipeline keyword arguments) of a mode that raised
+    NotImplementedError before it was ported."""
+    trackers = list(make_trackers())
+    if name == "model-based court":
+        trackers[3] = model_court("yolo")
+        trackers[3].engine.model = CellDetector(pose=True, nk=12)
+    elif name == "InpaintNet":
+        torch.save({"model": lecun_normal_(InpaintNet(), torch.Generator().manual_seed(2))
+                    .state_dict(), "param_dict": {"seq_len": 16}}, tmp_path / "inpaint.pt")
+        ball = BallTracker(None, inpainting_model_path=str(tmp_path / "inpaint.pt"),
+                           compute_dtype=torch.float32, device="cpu",
+                           config=BallTrackerConfig(height=72, width=128, batch_size=4,
+                                                    median_max_sample_num=6))
+        ball.tracknet.model = trackers[2].tracknet.model
+        trackers[2] = ball.video_info_post_init(trackers[2].video_info)
+    kwargs = {"derived ingest": {"ingest": "derived", "wire_long_side": 64},
+              "ball_stride=seq_len": {"ball_stride": 8}}.get(name, {})
+    return trackers, kwargs
+
+
+@pytest.mark.parametrize("name", ["derived ingest", "ball_stride=seq_len", "model-based court",
+                                  "InpaintNet"])
+def test_formerly_unported_modes_run(rng, tmp_path, name):
+    """The modes that raised NotImplementedError before they were ported
+    now run: one result a frame for every tracker."""
+    trackers, kwargs = _formerly_unported(tmp_path, name)
+    pipe = FusedPipeline(*trackers, chunk=8, **kwargs)
     out = pipe.run(iter(clip_frames(rng)), N)
     assert {k: len(v) for k, v in out.items()} == dict.fromkeys(
         ("players", "players_keypoints", "ball", "keypoints"), N)
     assert pipe.ingest == kwargs.get("ingest", "rgb")
+    assert pipe.court_mode == ("yolo" if name == "model-based court" else "fixed")
+    assert (trackers[2].inpaintnet is not None) == (name == "InpaintNet")
 
 
 @pytest.mark.parametrize("kwargs", [{"fused_association": "device"}])
