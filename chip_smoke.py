@@ -1,6 +1,7 @@
-"""Drive the PyTorch/CUDA port's ball, players, pose, fused, collect and model-court paths and its CLI on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players, pose, fused, collect, model-court and multi-device paths and its CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
 
 Phases (any failure raises, so the exit code is non-zero and no result line
 is printed):
@@ -115,10 +116,35 @@ is printed):
    counted over the first pass (the kernels line's court_yolo and
    court_resnet), a second pass equal to the first (caches and data.csv),
    measure_device_split's court sub-step, the inpaint pass's ms, peak
-   memory and the frames without a court.
+   memory and the frames without a court;
+16. the multi-device path as the card's machine runs it: an NCCL group of
+   one rank on the card (127.0.0.1, a free port) and make_mesh(data=1).
+   (a) With the decisive fakes on the 45-frame 1080p clip at chunk 16,
+   TrackingRunner(fused=True, mesh=...) writes the single-device run()'s
+   caches and data.csv byte for byte: with association 'host' against
+   run()'s default, and under 'auto' (the scan) against run() with
+   'device'. (b) The reference plan at full width through the mesh runner
+   (render=False, collect_data=True) on the 128-frame rally: the launch
+   counters zeroed before and read after the first pass (the kernels line's
+   'mesh'), a second pass equal to the first and timed (frames/s), the ball
+   ints' agreement with run() on the same clip, the scan's ms a chunk at
+   the drain, its ms a chunk on the card and on the host's torch and its
+   device launches a chunk on the same rows, its ID divergence from host
+   ByteTrack on the same detections, and a pass under torch.profiler. (c) run() with fused_association='device' at full
+   width, its frames/s. (d) BallTracker(mesh=...) against the single-device
+   ball: equal with the decisive fake at 1080p, the agreement printed at
+   full width with random weights.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
+processes, one a card, joined by NCCL: the decisive fakes' caches on every
+rank equal to a one-card run()'s with the scan; the full-width reference
+plan through the mesh runner (cls heads calibrated once, on card 0), every
+rank's results equal to rank 0's, its frames/s beside the one-card run()'s
+and run_mesh's on card 0, and the ball ints' agreement with run().
+
+The line before the last is the kernels' JSON record (the card's name and
+power limit with --mesh-ranks); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -127,6 +153,7 @@ import copy
 import ctypes
 import json
 import math
+import socket
 import subprocess
 import sys
 import tempfile
@@ -152,6 +179,8 @@ from padel_analytics_tpu_torch.models.resnet import ResNet50Regressor, imagenet_
 from padel_analytics_tpu_torch.models.tracknet import InpaintNet, make_tracknet
 from padel_analytics_tpu_torch.models.yolov8 import C2f, YOLOv8
 from padel_analytics_tpu_torch.ops import conv3x3, heatmap, nms, resize
+from padel_analytics_tpu_torch.ops.association import ByteTrack
+from padel_analytics_tpu_torch.ops.association_scan import associate_chunk, init_state
 from padel_analytics_tpu_torch.ops._fp32 import no_tf32
 from padel_analytics_tpu_torch.ops.area import resize_area, resize_area_planes
 from padel_analytics_tpu_torch.ops.color import planes_to_i420, rgb_to_i420
@@ -166,6 +195,8 @@ from padel_analytics_tpu_torch.trackers import (
     PlayerTracker,
     TrackingRunner,
 )
+from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh
+from padel_analytics_tpu_torch.trackers import fused as fused_mod
 from padel_analytics_tpu_torch.trackers.fused import PACK_THREADS
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
 
@@ -1944,12 +1975,340 @@ def phase_court(frames, smi: str) -> dict:
     return out
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_files(trackers, clip, out: Path, **kwargs) -> dict[str, bytes]:
+    """One TrackingRunner(fused=True, render=False, collect_data=True) run
+    saving each tracker's cache and data.csv under `out`; their bytes."""
+    out.mkdir()
+    for t, name in zip(trackers, TRACKER_NAMES):
+        t.save_path = out / f"{name}.json"
+    runner = TrackingRunner(list(trackers), clip, out / "unused.mp4", fused=True,
+                            fused_chunk=FUSED_CHUNK, fused_ingest="rgb", render=False,
+                            collect_data=True, **kwargs)
+    with torch.inference_mode():
+        runner.run()
+    check("fused_inference" in runner.stage_times, "mesh decisive: the fused path did not run")
+    runner.write_csv(out / "data.csv")
+    return {p.name: p.read_bytes() for p in sorted(out.iterdir()) if p.suffix in (".json", ".csv")}
+
+
+def phase_mesh_decisive(mesh) -> None:
+    """(a) With the decisive fakes, the mesh runner's files equal the
+    single-device run()'s byte for byte, for each association."""
+    n = 45
+    clip = MemoryClip(decisive_clip(n, seed=12), fps=30.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = {(assoc, m is not None): _run_files(_fake_trackers(n), clip,
+                                                    tmp / f"{assoc}{m is not None}",
+                                                    fused_association=assoc, mesh=m)
+                 for assoc, m in (("host", None), ("host", mesh), ("device", None),
+                                  ("auto", mesh))}
+    for (assoc, on_mesh), got in files.items():
+        check(len(got) == 5, f"mesh decisive {assoc}: files {sorted(got)}")
+    check(files["host", True] == files["host", False],
+          "mesh decisive: the mesh runner (host ByteTrack) differs from run()")
+    check(files["auto", True] == files["device", False],
+          "mesh decisive: the mesh runner (the scan) differs from run() with 'device'")
+    players = json.loads(files["auto", True]["players.json"])
+    print(f"mesh decisive check: {n} frames 1920x1080, rgb, chunk {FUSED_CHUNK}, one NCCL rank: "
+          f"caches and data.csv equal to run()'s byte for byte with host ByteTrack and with the "
+          f"scan ({sum(map(len, players))} boxes, "
+          f"{len({p['id'] for f in players for p in f})} scan IDs; host ByteTrack and the scan "
+          f"{'agree' if files['host', True] == files['auto', True] else 'differ'} here)")
+
+
+def _divergence_rate(host_ids, dev_ids) -> float:
+    """The share of detections whose scan ID disagrees with host ByteTrack's
+    under the first-seen mapping of scan IDs to host IDs, a detection one
+    side dropped counting as a disagreement (tests/test_association_device.py)."""
+    mapping: dict[int, int] = {}
+    total = mismatch = 0
+    for hid, did in zip(host_ids.reshape(-1).tolist(), dev_ids.reshape(-1).tolist()):
+        if hid == 0 and did == 0:
+            continue
+        total += 1
+        if hid == 0 or did == 0:
+            mismatch += 1
+            continue
+        mapping.setdefault(did, hid)
+        mismatch += mapping[did] != hid
+    return mismatch / max(total, 1)
+
+
+def _scan_measure(calls, dev, smi: str) -> None:
+    """The scan on the run's recorded rows: device and host-torch ms a chunk
+    (the first pass warms), device launches a chunk (profiled), and the ID
+    divergence from host ByteTrack on the same detections."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = [np.concatenate([b, s[..., None], v[..., None]], -1).astype(np.float32)
+            for b, s, v, *_ in calls]
+
+    def scan(device) -> list[np.ndarray]:
+        state, out = init_state(device=device), []
+        for k, r in enumerate(rows):
+            t = torch.from_numpy(r).to(device)
+            state, ids = associate_chunk(state, t[..., :4], t[..., 4], t[..., 5] > 0.5,
+                                         first=k == 0)
+            out.append(ids.cpu().numpy())
+        return out
+
+    ms = {}
+    for label, device in (("device", dev), ("host", torch.device("cpu"))):
+        scan(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = scan(device)
+        ms[label] = (time.perf_counter() - t0) / len(rows) * 1e3
+        check(all(np.array_equal(a, b[3]) for a, b in zip(ids, calls)),
+              f"mesh: the scan on the {label} differs from the run's IDs")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan(dev)
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    boxes = np.concatenate([c[0] for c in calls])
+    scores = np.concatenate([c[1] for c in calls])
+    valid = np.concatenate([c[2] for c in calls])
+    dev_ids = np.concatenate([c[3] for c in calls])
+    bt = ByteTrack(frame_rate=30.0)
+    host_ids = np.zeros(valid.shape, np.int64)
+    for f in range(len(boxes)):
+        keep = valid[f]
+        ids_f, kept = bt.update_with_detections(boxes[f][keep], scores[f][keep])
+        host_ids[f, np.flatnonzero(keep)[kept]] = ids_f
+    print(f"mesh scan ({smi}): {len(rows)} chunks of {rows[0].shape[0]} frames x "
+          f"{rows[0].shape[1]} slots, {int(valid.sum())} detections; at the drain "
+          f"{np.mean([c[4] for c in calls]) * 1e3:.3f} ms a chunk (upload, scan on "
+          f"{calls[0][5]}, download); on the same rows the card "
+          f"{ms['device']:.3f} ms a chunk in {launches / len(rows):.0f} device launches a chunk, "
+          f"the host's torch {ms['host']:.3f} ms a chunk; ID divergence from host ByteTrack "
+          f"{_divergence_rate(host_ids, dev_ids):.4f} ({int((host_ids > 0).sum())} host IDs, "
+          f"{int((dev_ids > 0).sum())} scan IDs)")
+
+
+def _ball_ints(trackers) -> list:
+    return [(b.xy, b.visibility) for b in trackers[2].results]
+
+
+def phase_mesh(mesh, frames, smi: str) -> dict:
+    """(b) The full-width reference plan through the mesh runner, (c) run()
+    with the device scan, (d) BallTracker(mesh=...). Returns (b)'s first
+    pass's launch counts."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    blocks = -(-n // (FUSED_CHUNK * mesh.size))
+    calls: list = []
+    scan_call = fused_mod._Scan.__call__
+
+    def recorded(self, boxes, scores, valid):
+        t0 = time.perf_counter()
+        ids = scan_call(self, boxes, scores, valid)  # ends in a download: synchronised
+        calls.append((boxes, scores, valid, ids, time.perf_counter() - t0, self.device))
+        return ids
+
+    fused_mod._Scan.__call__ = recorded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            trackers = full_width_trackers(tmp)
+            calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in trackers[:2]}
+            runner = TrackingRunner(list(trackers), clip, tmp / "unused.mp4", fused=True,
+                                    fused_chunk=FUSED_CHUNK, render=False, collect_data=True,
+                                    mesh=mesh)
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first_s, first_csv = _collect_run(runner, tmp / "data.csv")
+            counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            check("fused_inference" in runner.stage_times, "mesh: the fused path did not run")
+            # det + pose a block; TrackNet a batch of FUSED_CHUNK windows; K2
+            # a batch and the shard's first L-1 frames.
+            want = {"conv3x3_bn_act": 110 * blocks + 17 * -(-n // FUSED_CHUNK),
+                    "heatmap_cc": -(-n // FUSED_CHUNK) + 1}
+            check(counts == want, f"mesh: launches {counts}, want {want}")
+            for t in trackers:
+                check(len(t.results) == n and len(json.loads(t.save_path.read_text())) == n,
+                      f"mesh {t}: results and saved cache")
+            positions = check_csv(tmp / "data.csv", n)
+            first = [_json(t.results) for t in trackers]
+            run_calls = len(calls)
+            second_s, second_csv = _collect_run(runner, tmp / "data.csv")
+            check([_json(t.results) for t in trackers] == first and second_csv == first_csv,
+                  "mesh: second pass differs")
+            fused_s = runner.stage_times["fused_inference"]
+            mesh_ball = _ball_ints(trackers)
+            single = TrackingRunner(list(trackers), clip, tmp / "unused.mp4", fused=True,
+                                    fused_chunk=FUSED_CHUNK, render=False, collect_data=True)
+            _collect_run(single, tmp / "single.csv")
+            agree = sum(a == b for a, b in zip(mesh_ball, _ball_ints(trackers)))
+            print(f"mesh ({smi}): one NCCL rank, {n} frames 1920x1080, chunk {FUSED_CHUNK}, "
+                  f"ingest {runner.fused_ingest}, {_check_players(trackers[0].results)}; "
+                  f"{positions} player positions in data.csv; fused + collect "
+                  f"{n / first_s:.1f} frames/s first pass, {n / second_s:.1f} second (fused "
+                  f"inference {n / fused_s:.1f} frames/s), second equal to the first; ball ints "
+                  f"equal to run()'s at {agree} of {n} frames; peak device memory "
+                  f"{peak_gib:.2f} GiB; launches {counts}; calibration {calib}")
+            _scan_measure(calls[:run_calls], mesh.device, smi)
+            runner.restart()
+            profile_run(runner.run, "mesh", (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")),
+                        top_n=8, chunks=blocks, gaps=5)
+
+            # (c) run() with the scan at the drain.
+            device_run = TrackingRunner(list(trackers), clip, tmp / "unused.mp4", fused=True,
+                                        fused_chunk=FUSED_CHUNK, render=False,
+                                        collect_data=True, fused_association="device")
+            firsts = _collect_run(device_run, tmp / "device.csv")[0]
+            seconds = _collect_run(device_run, tmp / "device.csv")[0]
+            check(device_run._fused_pipeline.association == "device", "device run: association")
+            print(f"fused device association ({smi}): run() with the scan at the drain, {n} "
+                  f"frames 1920x1080, fused + collect {n / firsts:.1f} frames/s first pass, "
+                  f"{n / seconds:.1f} second (fused inference "
+                  f"{n / device_run.stage_times['fused_inference']:.1f} frames/s)")
+    finally:
+        fused_mod._Scan.__call__ = scan_call
+
+    # (d) BallTracker(mesh=...): the decisive fake, then full width.
+    dn = 45
+    dframes = decisive_clip(dn, seed=12)
+    balls = []
+    for m in (None, mesh):
+        ball = _fake_trackers(dn)[2]
+        ball.mesh = m
+        balls.append(_json(ball.predict_frames(iter(dframes), total_frames=dn)))
+    check(balls[0] == balls[1], "mesh ball tracker: the decisive fake's balls differ")
+    full = []
+    for m in (None, mesh):
+        ball = BallTracker(None, config=BallTrackerConfig(), mesh=m)
+        ball.video_info_post_init(VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n))
+        t0 = time.perf_counter()
+        full.append(_json(ball.predict_frames(iter(frames), total_frames=n)))
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+    check(len(full[1]) == n, "mesh ball tracker: results")
+    print(f"mesh ball tracker: decisive fake {dn} frames 1080p equal to the single-device "
+          f"balls ({sum(b['visibility'] for b in balls[0])} visible); full width, random "
+          f"weights: {sum(a == b for a, b in zip(*full))} of {n} frames equal to the "
+          f"single-device tracker's ({n / full_s:.1f} frames/s through the mesh, first call)")
+    return counts
+
+
+def _mesh_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of --mesh-ranks: NCCL on card `rank`; writes its caches and
+    times under `out`."""
+    out = Path(out)
+    torch.cuda.set_device(rank)
+    init_distributed("cuda", rank=rank, world_size=world, timeout_s=300,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh(data=world, device=torch.device("cuda", rank))
+        dn = 45
+        fakes = _fake_trackers(dn)
+        files = _run_files(fakes, MemoryClip(decisive_clip(dn, seed=12), fps=30.0),
+                           out / f"decisive{rank}", mesh=mesh)
+        frames = synthetic_players(128, seed=9)
+        n = len(frames)
+        clip = MemoryClip(frames, fps=30.0)
+        (out / f"full{rank}").mkdir()
+        trackers = full_width_trackers(out / f"full{rank}")
+        for t, name in zip(trackers[:2], TRACKER_NAMES):
+            t.engine.model.load_state_dict(torch.load(out / f"{name}.pt", map_location="cpu"))
+        runner = TrackingRunner(list(trackers), clip, out / "unused.mp4", fused=True,
+                                fused_chunk=FUSED_CHUNK, render=False, collect_data=True,
+                                mesh=mesh)
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        times = [_collect_run(runner, out / f"data{rank}.csv")[0] for _ in range(2)]
+        (out / f"rank{rank}.json").write_text(json.dumps({
+            "seconds": times, "n": n, "fused_s": runner.stage_times["fused_inference"],
+            "launches": [conv3x3.launches, heatmap.launches], "files": sorted(files),
+            "decisive": [_json(t.results) for t in fakes],
+            "results": [_json(t.results) for t in trackers]}))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_mesh_cards(world: int, smi: str) -> dict:
+    """The mesh over `world` cards, one process each (--mesh-ranks)."""
+    import multiprocessing
+
+    check(torch.cuda.device_count() >= world, f"{world} ranks need {world} cards")
+    frames = synthetic_players(128, seed=9)
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "single").mkdir()
+        trackers = full_width_trackers(tmp / "single")
+        calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in trackers[:2]}
+        for t, name in zip(trackers[:2], TRACKER_NAMES):
+            torch.save(t.engine.model.state_dict(), tmp / f"{name}.pt")
+        ctx = multiprocessing.get_context("spawn")
+        port = _free_port()
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, str(tmp)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(all(p.exitcode == 0 for p in procs),
+              f"mesh ranks: exit codes {[p.exitcode for p in procs]}")
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
+        # The decisive fakes: rank 0's files equal a one-card run()'s with
+        # the scan, the other ranks write none; every rank's results equal.
+        want = _run_files(_fake_trackers(45), MemoryClip(decisive_clip(45, seed=12), fps=30.0),
+                          tmp / "decisive_single", fused_association="device")
+        got = {p.name: p.read_bytes() for p in sorted((tmp / "decisive0").iterdir())
+               if p.suffix in (".json", ".csv")}
+        check(got == want, "mesh ranks: rank 0's decisive files differ from run()'s")
+        for r, rec in enumerate(ranks[1:], 1):
+            check(rec["files"] == [], f"mesh ranks: rank {r} wrote {rec['files']}")
+            check(rec["decisive"] == ranks[0]["decisive"] and rec["results"] == ranks[0]["results"],
+                  f"mesh ranks: rank {r}'s results differ from rank 0's")
+        # One card on the same clip and weights: run() and run_mesh at one rank.
+        single = TrackingRunner(list(trackers), MemoryClip(frames, fps=30.0), tmp / "u.mp4",
+                                fused=True, fused_chunk=FUSED_CHUNK, render=False,
+                                collect_data=True)
+        single_s = [_collect_run(single, tmp / "single.csv")[0] for _ in range(2)]
+        agree = sum(a == b for a, b in zip(_ball_ints(trackers),
+                                           [(tuple(b["xy"]), b["visibility"])
+                                            for b in ranks[0]["results"][2]]))
+    print(f"mesh over {world} cards ({smi}): one process a card, NCCL; decisive fakes: rank "
+          f"0's caches and data.csv equal to one card's run(), the other ranks' results equal "
+          f"and no file written; full width {n} frames "
+          f"1920x1080, chunk {FUSED_CHUNK} a rank: fused + collect "
+          f"{n / ranks[0]['seconds'][0]:.1f} frames/s first pass, "
+          f"{n / ranks[0]['seconds'][1]:.1f} second (fused inference "
+          f"{n / ranks[0]['fused_s']:.1f}); every rank's results equal to rank 0's; launches a "
+          f"rank (K1, K2, both passes) {[rec['launches'] for rec in ranks]}; one card's run() "
+          f"{n / single_s[0]:.1f} / {n / single_s[1]:.1f} frames/s; ball ints equal to run()'s "
+          f"at {agree} of {n} frames; calibration {calib}")
+    return {"conv3x3_bn_act": ranks[0]["launches"][0], "heatmap_cc": ranks[0]["launches"][1]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
     dev = torch.device("cuda", 0)
     smi = phase_report()
     phase_build()
+    if "--mesh-ranks" in sys.argv:
+        world = int(sys.argv[sys.argv.index("--mesh-ranks") + 1])
+        phase_mesh_cards(world, smi)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     timed: dict = {}
     k1 = phase_k1(dev, timed)
     k1["sums"]["fast"] = phase_fast_k1(dev, timed, k1)
@@ -1974,6 +2333,14 @@ def main() -> None:
                     for k, v in fast.items()})
     phase_court_decisive()
     by_path.update(phase_court(synthetic_players(128, seed=9), smi))
+    init_distributed("cuda", rank=0, world_size=1, timeout_s=300,
+                     init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        mesh = make_mesh(data=1, device=dev)
+        phase_mesh_decisive(mesh)
+        by_path["mesh"] = phase_mesh(mesh, synthetic_players(128, seed=9), smi)
+    finally:
+        torch.distributed.destroy_process_group()
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

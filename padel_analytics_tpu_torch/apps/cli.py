@@ -146,7 +146,7 @@ def run_pipeline(cfg: PipelineConfig, video: Optional[MemoryClip] = None, device
     runner = build_pipeline(cfg, interactive=interactive, device=device, video=video)
     runner.run()
     if cfg.collect_data and runner.data_analytics is not None:
-        runner.data_analytics.write_csv(cfg.collect_data_path, runner.video_info.fps)
+        runner.write_csv(cfg.collect_data_path)
         print(f"cli: analytics written to {cfg.collect_data_path}")
     return runner
 

@@ -1,13 +1,21 @@
 """Heatmap -> ball-coordinate decode (kernel K2).
 
-Counterpart of ``padel_analytics_tpu/ops/heatmap.py`` (rollprop method) and
-``ops/pallas_cc.py``: threshold, then ``num_iters`` synchronous rounds of 3x3
-min/max propagation of each mask pixel's component extrema (min/max row and
-column, raster-first index), then the largest bounding box, ties to the
-largest first index (cv2's reverse-scan order), and its centre. On a CUDA
-tensor it runs ``csrc/heatmap_cc.cu``, one thread-block cluster per heatmap
-as `cc_plan` lays it out; on a CPU tensor the plain PyTorch version
+Counterpart of ``padel_analytics_tpu/ops/heatmap.py`` and
+``ops/pallas_cc.py``. The default method, 'rollprop': threshold, then
+``num_iters`` synchronous rounds of 3x3 min/max propagation of each mask
+pixel's component extrema (min/max row and column, raster-first index), then
+the largest bounding box, ties to the largest first index (cv2's
+reverse-scan order), and its centre. On a CUDA tensor it runs
+``csrc/heatmap_cc.cu``, one thread-block cluster per heatmap as `cc_plan`
+lays it out; on a CPU tensor the plain PyTorch version
 `decode_heatmaps_plain`. The two are bit-equal.
+
+The method 'segments' is the JAX package's original formulation, plain
+torch on any device: labels by ``num_iters`` rounds of 3x3 max-propagation
+of (linear index + 1), then per-label boxes by segment reductions
+(`decode_heatmaps_segments`). Where the propagation has not converged its
+labels split a component, and its tie-break among equal boxes is the JAX
+package's, not K2's.
 """
 
 from __future__ import annotations
@@ -146,9 +154,69 @@ def cc_plan(h: int, w: int, cluster: int | None = None) -> CCPlan:
     )
 
 
-def decode_heatmaps(heatmaps: torch.Tensor, threshold: float = 0.5, num_iters: int = 32):
+def _label_components(mask: torch.Tensor, num_iters: int) -> torch.Tensor:
+    """8-connected labels of (B, H, W) masks by max-propagation: int32, 0 on
+    the background; a converged component's label is its largest linear
+    index + 1."""
+    _, h, w = mask.shape
+    idx = torch.arange(1, h * w + 1, dtype=torch.int32, device=mask.device).reshape(h, w)
+    zero = torch.zeros((), dtype=torch.int32, device=mask.device)
+    labels = torch.where(mask, idx, zero)
+    for _ in range(num_iters):
+        # The labels are >= 0, so a -1 border is the JAX package's 0 padding.
+        labels = torch.where(mask, _shift_max(labels), zero)
+    return labels
+
+
+def decode_heatmaps_segments(heatmaps: torch.Tensor, threshold: float = 0.5,
+                             num_iters: int = 32):
+    """The 'segments' method on any device: (cx, cy, vis) int32 (B,)."""
+    b, h, w = heatmaps.shape
+    dev = heatmaps.device
+    mask = heatmaps.float() > threshold
+    labels = _label_components(mask, num_iters).reshape(b, -1).long()
+    rows = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w).reshape(1, -1)
+    cols = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w).reshape(1, -1)
+    segs = h * w + 1
+
+    def reduce(values, how, init):
+        out = torch.full((b, segs), init, dtype=torch.int32, device=dev)
+        return out.scatter_reduce_(1, labels, values.expand(b, -1), reduce=how)
+
+    min_r, max_r = reduce(rows, "amin", _BIG), reduce(rows, "amax", -1)
+    min_c, max_c = reduce(cols, "amin", _BIG), reduce(cols, "amax", -1)
+    first_pix = reduce(rows * w + cols, "amin", _BIG)
+    present = max_r >= 0
+    present[:, 0] = False  # the background
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    bw = torch.where(present, max_c - min_c + 1, zero)
+    bh = torch.where(present, max_r - min_r + 1, zero)
+    area = bw * bh
+    # Among the largest boxes, the one whose first pixel comes last in raster
+    # order (cv2's reverse scan; the reference keeps the first maximum).
+    tie_key = torch.where(present & (area == area.amax(dim=1, keepdim=True)), first_pix,
+                          torch.full((), -1, dtype=torch.int32, device=dev))
+    best = tie_key.argmax(dim=1, keepdim=True)
+
+    def at(t):
+        return t.gather(1, best)[:, 0]
+
+    any_blob = mask.reshape(b, -1).any(dim=1)
+    cx = torch.where(any_blob, torch.div(at(min_c) * 2 + at(bw), 2, rounding_mode="floor"), zero)
+    cy = torch.where(any_blob, torch.div(at(min_r) * 2 + at(bh), 2, rounding_mode="floor"), zero)
+    vis = ((cx != 0) | (cy != 0)).to(torch.int32)
+    return cx.to(torch.int32), cy.to(torch.int32), vis
+
+
+def decode_heatmaps(heatmaps: torch.Tensor, threshold: float = 0.5, num_iters: int = 32,
+                    method: str = "rollprop"):
     """Decode (B, H, W) heatmaps to (cx, cy, vis) int32 (B,) in heatmap
-    pixels; vis = 0 iff cx == cy == 0."""
+    pixels; vis = 0 iff cx == cy == 0. method: 'rollprop' (kernel K2 on a
+    CUDA tensor, its plain version on a CPU tensor) or 'segments'."""
+    if method == "segments":
+        return decode_heatmaps_segments(heatmaps, threshold, num_iters)
+    if method != "rollprop":
+        raise ValueError(f"unknown decode method {method!r}")
     if heatmaps.device.type == "cpu":
         return decode_heatmaps_plain(heatmaps, threshold, num_iters)
     return _decode_cuda(heatmaps, threshold, num_iters)

@@ -26,8 +26,10 @@ TrackNet channel-swapped relative to the rest. `channel_quirk=True`
 Each decoded frame is resized once on the device; windows are assembled on
 the device from a carried frame context; TrackNet, the rolling ensemble
 (carried heatmap buffer) and the decode run per chunk of frames, so only
-(x, y, visibility) come back to the host. Not ported yet: the multi-device
-path.
+(x, y, visibility) come back to the host. With a `mesh` (parallel/mesh.py,
+one process a device) every rank resizes the whole clip, and the window pass
+splits its frame axis over the ranks with a seq_len-1 halo exchange
+(parallel/sharded_inference.py); every rank returns the whole clip's balls.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from ..models.tracknet import InpaintNet, make_tracknet
 from ..ops.ensemble import get_ensemble_weight, overlap_ensemble_coefficients
 from ..ops.heatmap import decode_heatmaps
 from ..ops.median import median_background
+from ..parallel.sharded_inference import sharded_window_inference
 from ._ballwindow import (
     assemble_windows,
     frame_channels,
@@ -111,8 +114,12 @@ class BallTracker(Tracker):
         config: Optional[BallTrackerConfig] = None,
         device: torch.device | str = "cuda",
         seed: int = 0,
+        mesh=None,
     ):
         super().__init__(load_path=load_path, save_path=save_path)
+        # A parallel.mesh.Mesh: the window pass shards the clip's frames over
+        # its ranks. None: this device alone.
+        self.mesh = mesh
         self.bg_mode = "concat"
         self.subpixel_up = False
         self.window_stride = 1
@@ -244,10 +251,36 @@ class BallTracker(Tracker):
         h_scaler = self.video_info.height / self.HEIGHT
         with torch.inference_mode():
             stream = self._resized_frame_stream(frame_generator)
-            xs, ys, vs, video_len = self._window_loop(stream)
+            if self.mesh is None:
+                xs, ys, vs, video_len = self._window_loop(stream)
+            else:
+                xs, ys, vs, video_len = self._mesh_window_pass(list(stream))
         if total_frames and video_len != total_frames:
             print(f"{self}: decoded {video_len} frames, expected {total_frames}")
         return self._finish_predictions(xs, ys, vs, video_len, w_scaler, h_scaler)
+
+    def _mesh_window_pass(self, resized: list[torch.Tensor]):
+        """The window pass over the whole clip's resized frames with the
+        frame axis split over the mesh (windows in batches of batch_size);
+        the single-device loop where the clip is too short for the mesh's
+        halo. Returns (xs, ys, vs, video_len)."""
+        seq_len, d = self.tracknet_seq_len, self.mesh.size
+        video_len = len(resized)
+        if video_len < seq_len:
+            return [], [], [], video_len
+        if -(-video_len // d) < seq_len - 1:
+            print(f"{self}: clip too short for {d}-way frame sharding (shard < halo); using the "
+                  "single-device path")
+            return self._window_loop(iter(resized))
+
+        def apply(x):
+            return self.tracknet.model(x.to(self.compute_dtype))
+
+        cx, cy, vis = sharded_window_inference(
+            apply, torch.stack(resized), self._median_resized, self.mesh, seq_len=seq_len,
+            eval_mode=self.EVAL_MODE, bg_mode=self.bg_mode, stride=self.window_stride,
+            batch=self.batch_size)
+        return cx.tolist(), cy.tolist(), vis.tolist(), video_len
 
     def _finish_predictions(self, xs, ys, vs, video_len, w_scaler, h_scaler) -> list[Ball]:
         if video_len < self.tracknet_seq_len:

@@ -22,7 +22,9 @@ device once, and consumed by:
 Each sub-step reuses its tracker's own device half (`device_step`) and its
 results are finished on the host by the tracker's host half (`host_step`:
 the greedy NMS pass, unletterbox, clip, polygon gate, keypoint rescale),
-then ByteTrack, at the drain; the court's keypoints are scaled from wire to
+then ByteTrack (or, with association='device', the association scan over
+the chunk's rows on the host's torch, `ops/association_scan.py`), at the
+drain; the court's keypoints are scaled from wire to
 source pixels there ('yolo') or on the device ('resnet'). A fixed court
 costs nothing. With an InpaintNet the ball tracker's inpaint pass runs over
 the whole clip at the end (so the results cannot stream). Up to two chunks
@@ -47,8 +49,15 @@ window of seq_len chunk frames runs once and the chunk emits its own
 frames: no ensemble, no carry, no lag; the last partial window sees zero
 frames.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP.md
-item: association='device', `run_staged` and `run_mesh`.
+`run_mesh` runs the same sub-steps with the clip's frame axis split over a
+mesh of processes, one device each (parallel/mesh.py): each rank uploads its
+own chunk of every block of chunk x ranks frames, the packed rows are
+all-gathered and drained alike on every rank, and the ball finishes with one
+halo-exchange window pass over the gathered preprocessed frames
+(parallel/sharded_inference.py).
+
+Not ported, raising NotImplementedError that names its ROADMAP.md item:
+`run_staged`.
 """
 
 from __future__ import annotations
@@ -63,10 +72,13 @@ import torch
 
 from ..models.resnet import imagenet_stats
 from ..ops.area import resize_area, resize_area_planes
+from ..ops.association_scan import associate_chunk, init_state
 from ..ops.color import i420_to_rgb, planes_to_i420, rgb_to_i420
 from ..ops.ensemble import overlap_ensemble_coefficients
 from ..ops.packing import Layout, pack_rows, unpack_rows
 from ..ops.resize import letterbox_plan, resize_plan
+from ..parallel.mesh import Mesh
+from ..parallel.sharded_inference import sharded_window_inference
 from ._ballwindow import frame_channels, make_frame_preprocess, median_model_resolution
 from ._streams import DeviceTimer, Lanes, StagingRing, to_host
 from .ball import BallTracker
@@ -82,6 +94,35 @@ PACK_THREADS = 4
 STAGING_SLOTS = 3
 #: Chunks in flight on the device before the oldest is drained.
 IN_FLIGHT = 2
+
+
+def _resolved(device: torch.device) -> torch.device:
+    """`device` with its index: a bare 'cuda' is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class _Scan:
+    """The association scan carried through one run, over each drained
+    chunk's rows (the host's NMS output) on the host's torch: the scan is a
+    few hundred tiny ops a frame, each a launch on the card, where it
+    measured slower than here (PERF.md; chip_smoke.py phase 16 times
+    both)."""
+
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.state = init_state(device=self.device)
+        self.first = True
+
+    def __call__(self, boxes: np.ndarray, scores: np.ndarray, valid: np.ndarray) -> np.ndarray:
+        self.state, ids = associate_chunk(self.state, torch.from_numpy(boxes),
+                                          torch.from_numpy(scores), torch.from_numpy(valid),
+                                          first=self.first)
+        self.first = False
+        return ids.numpy()
 
 
 class _FrameWindow:
@@ -123,12 +164,14 @@ class _FrameWindow:
 class _ResultBuilder:
     """Incremental host-side result accumulation at drain time.
 
-    The drain does only numpy work between dispatches: host ByteTrack
+    The drain does only host work between dispatches: host ByteTrack
     (inherently sequential; running it here overlaps it with the chunks in
-    flight) and array appends. Result objects are built at the emit points
-    only: `maybe_emit` for a streaming consumer, `finish` otherwise."""
+    flight), or the association scan where `scan` is given, and array
+    appends. Result objects are built at the emit points only: `maybe_emit`
+    for a streaming consumer, `finish` otherwise."""
 
-    def __init__(self, pipeline: "FusedPipeline", n: int, src_hw, stream=None):
+    def __init__(self, pipeline: "FusedPipeline", n: int, src_hw, stream=None,
+                 scan: Optional[_Scan] = None):
         self.pipeline = pipeline
         self.n = n
         ball = pipeline.ball
@@ -148,20 +191,26 @@ class _ResultBuilder:
         self.ball_v: list[int] = []
         # The inpaint pass needs the whole clip: nothing streams before it.
         self.stream = stream if ball.inpaintnet is None else None
+        self.scan = scan
         self._emitted = 0
 
     def add_det(self, boxes, scores, valid) -> None:
-        """(F, D, 4/-/-) host arrays for F consecutive frames; ByteTrack
-        assigns the IDs here, in frame order."""
-        byte_track = self.pipeline.players.byte_track
-        keep_mask = np.zeros(valid.shape, bool)
-        ids = np.zeros(valid.shape, np.int64)
-        for f in range(boxes.shape[0]):
-            keep = valid[f]
-            ids_f, kept = byte_track.update_with_detections(boxes[f][keep], scores[f][keep])
-            sel = np.flatnonzero(keep)[kept]
-            keep_mask[f, sel] = True
-            ids[f, sel] = ids_f
+        """(F, D, 4/-/-) host arrays for F consecutive frames; ByteTrack (or
+        the scan) assigns the IDs here, in frame order. A detection the scan
+        gives no ID is dropped, as one ByteTrack does not keep."""
+        if self.scan is not None:
+            ids = self.scan(boxes, scores, valid)
+            keep_mask = valid & (ids > 0)
+        else:
+            byte_track = self.pipeline.players.byte_track
+            keep_mask = np.zeros(valid.shape, bool)
+            ids = np.zeros(valid.shape, np.int64)
+            for f in range(boxes.shape[0]):
+                keep = valid[f]
+                ids_f, kept = byte_track.update_with_detections(boxes[f][keep], scores[f][keep])
+                sel = np.flatnonzero(keep)[kept]
+                keep_mask[f, sel] = True
+                ids[f, sel] = ids_f
         self._det_chunks.append((boxes, scores, keep_mask, ids))
         self._det_ready += boxes.shape[0]
 
@@ -336,6 +385,10 @@ class FusedPipeline:
         self.ingest = ingest
         self._ingest_pref = ingest
         self.wire_long_side = int(wire_long_side)
+        # 'host': ByteTrack at the drain (exact parity); 'device': the
+        # association scan (greedy + constant velocity, ops/association_scan.py);
+        # 'auto': host in `run`, the scan in `run_mesh`.
+        self.association = association
         # 1: the reference's stride-1 rolling ensemble; seq_len: nonoverlap.
         self.ball_stride = ball_stride
         self.device = devices.pop()
@@ -346,21 +399,13 @@ class FusedPipeline:
     @staticmethod
     def check_options(ingest: str, association: str = "auto", ball_stride: int = 1,
                       seq_len: Optional[int] = None, chunk: Optional[int] = None) -> None:
-        """Refuse unknown options (ValueError) and those not ported yet
-        (NotImplementedError, naming their ROADMAP.md item). Of association
-        only one behaviour is ported, so it is not kept: 'auto' and 'host'
-        both mean host ByteTrack at the drain (exact parity). ball_stride is
-        1 or, with `chunk` a multiple of it, the ball tracker's `seq_len`
-        (checked where they are given)."""
+        """Refuse unknown options (ValueError). ball_stride is 1 or, with
+        `chunk` a multiple of it, the ball tracker's `seq_len` (checked where
+        they are given)."""
         if ingest not in ("rgb", "i420", "derived"):
             raise ValueError(f"unknown ingest {ingest!r}")
         if association not in ("host", "device", "auto"):
             raise ValueError(f"unknown association {association!r}")
-        if association == "device":
-            raise NotImplementedError(
-                "the device association scan is not ported yet (ROADMAP.md Queue 1 item 11b, "
-                "beside run_mesh, its only default user)"
-            )
         if seq_len is not None and ball_stride not in (1, seq_len):
             raise ValueError(f"ball_stride must be 1 (the reference's stride-1 ensemble) or "
                              f"seq_len={seq_len} (nonoverlap), got {ball_stride}")
@@ -369,6 +414,14 @@ class FusedPipeline:
         if ball_stride != 1 and chunk is not None and chunk % ball_stride:
             raise ValueError(f"nonoverlap ball_stride needs chunk % seq_len == 0 "
                              f"(chunk={chunk}, seq_len={ball_stride})")
+
+    def _scan(self, mesh: bool) -> Optional[_Scan]:
+        """The association scan of a run (None: host ByteTrack): 'device',
+        or 'auto' on the mesh path, whose ByteTrack loop every rank would
+        repeat on the host."""
+        if self.association == "device" or (self.association == "auto" and mesh):
+            return _Scan()
+        return None
 
     @property
     def _ball_off(self) -> int:
@@ -602,7 +655,7 @@ class FusedPipeline:
             zero_frame = np.zeros_like(fw.first())
             n_ext = n + self._ball_off
             num_chunks = -(-n_ext // b)
-            builder = _ResultBuilder(self, n, src_hw, stream)
+            builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
 
             def prepare(k: int) -> int:
                 """Host side of chunk k: decode fill, then pack into its
@@ -652,34 +705,48 @@ class FusedPipeline:
         D2H copy of its packed buffer. Returns (the chunk's record, the new
         ball state)."""
         decode, det_step, pose_step, ball_step, court_step = steps
-        lanes, b = self.lanes, self.chunk
-        with lanes.on(lanes.copy):
-            frames = decode(ring.upload(k))
-            ready = lanes.record(lanes.copy)
-        n_real = max(0, min(lo + b, n) - lo)
-
-        def launch(lane, step) -> _Download:
-            with lanes.on(lane):
-                lanes.wait(lane, ready)
-                if lane is not None:
-                    # frames was allocated on the copy lane: keep the
-                    # allocator from reusing it while this lane reads it.
-                    frames.record_stream(lane)
-                buf, layout = step(frames)
-                return _Download(to_host(buf), layout, lanes.record(lane), buf)
+        lanes = self.lanes
+        frames, ready = self._upload(ring, k, decode)
+        n_real = max(0, min(lo + self.chunk, n) - lo)
 
         def ball(f):
             nonlocal state
             packed, state = ball_step(f, state, lo, swap)
             return packed
 
-        swap = bool(np.any(quirk_flags[lo: lo + b]))
+        def launch(lane, step) -> _Download:
+            return self._launch(lane, step, frames, ready)
+
+        swap = bool(np.any(quirk_flags[lo: lo + self.chunk]))
         # A chunk of padding only (the ball's tail) runs the ball step alone.
         det = launch(lanes.det, det_step) if n_real else None
         pose = launch(lanes.pose, pose_step) if n_real else None
         ball_download = launch(lanes.ball, ball)  # sets the new state
         court = launch(lanes.court, court_step) if n_real and court_step else None
         return _Chunk(lo, n_real, det, pose, ball_download, court), state
+
+    def _upload(self, ring: StagingRing, k: int, decode):
+        """Chunk k's upload and ingest decode on the copy lane: (frames, an
+        event behind them)."""
+        lanes = self.lanes
+        with lanes.on(lanes.copy):
+            frames = decode(ring.upload(k))
+            return frames, lanes.record(lanes.copy)
+
+    def _launch(self, lane, step, frames, ready, gather=None) -> _Download:
+        """`step` over the uploaded frames on `lane` after `ready`, its packed
+        buffer (all-gathered over a mesh by `gather`) copied to the host."""
+        lanes = self.lanes
+        with lanes.on(lane):
+            lanes.wait(lane, ready)
+            if lane is not None:
+                # frames was allocated on the copy lane: keep the allocator
+                # from reusing it while this lane reads it.
+                frames.record_stream(lane)
+            buf, layout = step(frames)
+            if gather is not None:
+                buf = gather(buf)
+            return _Download(to_host(buf), layout, lanes.record(lane), buf)
 
     def _unpack_frames(self, results, chunk: _Chunk, src_hw) -> None:
         """The det, pose and court downloads of a chunk's clip frames, once
@@ -782,8 +849,130 @@ class FusedPipeline:
             "loop against a staged scan, decided from the profiled dispatch gaps)"
         )
 
-    def run_mesh(self, *args, **kwargs):
-        raise NotImplementedError("run_mesh is not ported yet (ROADMAP.md Queue 1 item 11)")
+    def run_mesh(self, frame_iter: Iterable[np.ndarray], total_frames: int,
+                 mesh: Mesh) -> dict[str, list]:
+        """The fused run with the clip's frame axis split over `mesh`, one
+        process a device; every rank passes the whole clip and gets the
+        whole clip's results.
+
+        Per block of chunk x ranks frames, each rank packs and uploads only
+        its own chunk and runs det, pose, the ball's preprocess and a model
+        court on it (through kernel K1 on a card); the packed rows and the
+        uint8 preprocessed ball frames are all-gathered over the mesh's
+        group, and every rank drains the block alike: the host halves, then
+        the association scan (association 'auto' or 'device') or ByteTrack
+        ('host'). The ball finishes with one `sharded_window_inference`
+        over the gathered clip, the rank's windows in batches of the chunk.
+        The trackers must lie on the mesh's device. Equal to `run` on the
+        same clip where the models are (tests/test_torch_fused_mesh.py)."""
+        if _resolved(mesh.device) != _resolved(self.device):
+            raise ValueError(f"the trackers lie on {self.device}, the mesh's rank on {mesh.device}")
+        ball, b = self.ball, self.chunk
+        seq_len = ball.tracknet_seq_len
+        block = b * mesh.size
+        with torch.inference_mode():
+            median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
+                frame_iter, total_frames)
+            if n < seq_len or -(-n // mesh.size) < seq_len - 1:
+                raise ValueError(f"clip ({n} frames) too short for {mesh.size}-way frame sharding")
+            steps = self._get_steps(src_hw)
+            ball_pre = self._ball_pre_step(src_hw, n, median_src, quirk_flags, block)
+            ring = self._ring(src_hw)
+            zero_frame = np.zeros_like(fw.first())
+            num_blocks = -(-n // block)
+            builder = _ResultBuilder(self, n, src_hw, None, self._scan(mesh=True))
+            pre_frames: list[torch.Tensor] = []
+
+            def prepare(k: int) -> int:
+                """Host side of block k: read the block's frames, pack this
+                rank's chunk of them."""
+                lo = k * block + mesh.rank * b
+                hi = min((k + 1) * block, n)
+                avail = fw.fill_to(hi)
+                if avail < hi:
+                    raise ValueError(f"the frame iterator ran dry after {avail} frames of "
+                                     f"total_frames={n}")
+                frames = [fw.get(i) if i < n else zero_frame for i in range(lo, lo + b)]
+                self._pack_chunk(frames, ring.acquire(k), pack_pool)
+                fw.drop_below(hi)
+                return lo
+
+            with ThreadPoolExecutor(PACK_THREADS) as pack_pool, \
+                    ThreadPoolExecutor(1) as prefetch:
+                next_prep = prefetch.submit(prepare, 0)
+                pending: collections.deque[_Chunk] = collections.deque()
+                for k in range(num_blocks):
+                    lo = next_prep.result()
+                    if k + 1 < num_blocks:
+                        next_prep = prefetch.submit(prepare, k + 1)
+                    pending.append(self._dispatch_block(steps, ball_pre, ring, k, lo, n, mesh))
+                    if len(pending) > IN_FLIGHT:
+                        self._drain_block(pending.popleft(), builder, src_hw, pre_frames)
+                while pending:
+                    self._drain_block(pending.popleft(), builder, src_hw, pre_frames)
+            self.lanes.current_after_all()
+
+            # The ball: one halo-exchange window pass over the gathered clip.
+            def apply(x):
+                return ball.tracknet.model(x.to(ball.compute_dtype))
+
+            cx, cy, vis = sharded_window_inference(
+                apply, torch.cat(pre_frames), median_resized, mesh, seq_len=seq_len,
+                eval_mode=ball.EVAL_MODE, bg_mode=ball.bg_mode, stride=self.ball_stride,
+                batch=b)
+            for x, y, v in zip(cx.tolist(), cy.tolist(), vis.tolist()):
+                builder.add_ball(x, y, v)
+            return builder.finish()
+
+    def _ball_pre_step(self, src_hw, n: int, median_src, quirk_flags, block: int):
+        """The mesh path's ball sub-step: a rank's chunk of wire frames ->
+        (B, H, W, C_f) uint8 preprocessed frame channels (the channel quirk
+        applied by frame), for the gathered clip's window pass."""
+        ball, b = self.ball, self.chunk
+        pre = make_frame_preprocess(self._wire(src_hw)[0], (ball.HEIGHT, ball.WIDTH),
+                                    ball.bg_mode)
+        flags = np.zeros(-(-n // block) * block, np.float32)
+        flags[:n] = quirk_flags
+        lanes = self.lanes
+        lanes.after_current()
+        with lanes.on(lanes.ball):  # allocated and read on the ball lane
+            median_src_dev = None if median_src is None else torch.from_numpy(median_src).to(
+                self.device)
+            swap = torch.from_numpy(flags).to(self.device)
+
+        def step(frames, lo: int):
+            chunk_flags = swap[lo: lo + b] if np.any(flags[lo: lo + b]) else None
+            out = pre(frames, median_src=median_src_dev, swap=chunk_flags)
+            return out.to(torch.uint8), None  # exact integers in [0, 255]
+
+        return step
+
+    def _dispatch_block(self, steps, ball_pre, ring: StagingRing, k: int, lo: int, n: int,
+                        mesh: Mesh) -> _Chunk:
+        """Queue block k's device work for this rank's chunk (its first frame
+        `lo`): the upload, then each sub-step on its lane, its packed buffer
+        all-gathered over the mesh and copied to the host. The record's
+        frames are the block's."""
+        decode, det_step, pose_step, _, court_step = steps
+        lanes = self.lanes
+        frames, ready = self._upload(ring, k, decode)
+        block_lo = k * self.chunk * mesh.size
+        n_real = min(block_lo + self.chunk * mesh.size, n) - block_lo
+
+        def launch(lane, step) -> _Download:
+            return self._launch(lane, step, frames, ready, gather=mesh.all_gather)
+
+        return _Chunk(block_lo, n_real, launch(lanes.det, det_step), launch(lanes.pose, pose_step),
+                      launch(lanes.ball, lambda f: ball_pre(f, lo)),
+                      launch(lanes.court, court_step) if court_step else None)
+
+    def _drain_block(self, chunk: _Chunk, builder: _ResultBuilder, src_hw,
+                     pre_frames: list) -> None:
+        """A block's host work, alike on every rank: the trackers' host
+        halves and the IDs, then its preprocessed ball frames kept."""
+        self._unpack_frames(builder, chunk, src_hw)
+        pre, _ = chunk.ball.take(chunk.n_real)
+        pre_frames.append(pre)
 
     # ------------------------------------------------------------------
 

@@ -20,6 +20,12 @@ is skipped. Both give the same `data_analytics`. `fused_stream_draw=True` draws 
 the fused pass runs (`_StreamingDrawer`), except with an InpaintNet, whose
 pass needs the whole clip: the draw then follows the fused pass. A runner asked to render where
 OpenCV is absent raises ImportError when it is constructed.
+
+With a `mesh` (parallel/mesh.py: one process a device, every rank running
+the same runner over the same clip) the fused pass is
+`FusedPipeline.run_mesh` and every rank gets the same results and
+data_analytics; only rank 0 writes files (the prediction caches, the video,
+data.csv through `write_csv`), the others collect without drawing.
 """
 
 from __future__ import annotations
@@ -166,8 +172,8 @@ class TrackingRunner:
         # fused_wire_long_side; every model input derived on the device).
         fused_ingest: str = "i420",
         fused_wire_long_side: int = 960,
-        # Only checked: 'auto' / 'host' (host ByteTrack at the drain) are the
-        # ported values.
+        # 'auto': host ByteTrack at the drain on one device, the association
+        # scan under a mesh; 'host' / 'device' force either.
         fused_association: str = "auto",
         # 1: the reference's stride-1 rolling ensemble; the ball tracker's
         # seq_len: each window evaluated once (nonoverlap, an opt-in trade).
@@ -183,6 +189,9 @@ class TrackingRunner:
         # 'inline' encodes in this process, 'subprocess' in a child process
         # fed over a pipe (the same mp4v output).
         encoder: str = "inline",
+        # A parallel.mesh.Mesh: the fused pass splits the clip's frames over
+        # its ranks (FusedPipeline.run_mesh). None: one device.
+        mesh=None,
     ):
         if render:
             _require_cv2()  # before any decode or inference
@@ -193,14 +202,17 @@ class TrackingRunner:
         self.fused_ingest = fused_ingest
         self.fused_wire_long_side = fused_wire_long_side
         self.fused_ball_stride = fused_ball_stride
+        self.fused_association = fused_association
+        self.mesh = mesh
         if fused:
             # Refuse the fused options that are unknown or not ported here,
             # before any decode, rather than after the per-tracker set-up.
             seq_lens = [t.tracknet_seq_len for t in trackers if str(t) == "ball_tracker"]
             FusedPipeline.check_options(fused_ingest, fused_association, fused_ball_stride,
                                         seq_lens[0] if seq_lens else None, fused_chunk)
-        # With nothing to draw, the drawer stays off.
-        self.fused_stream_draw = fused_stream_draw and render
+        # With nothing to draw, the drawer stays off; under a mesh too (the
+        # ball results come at the end of run_mesh).
+        self.fused_stream_draw = fused_stream_draw and render and mesh is None
         self.render = render
         self.render_scale = float(render_scale)
         self.encoder = encoder
@@ -233,6 +245,22 @@ class TrackingRunner:
         self._fused_pipeline: Optional[FusedPipeline] = None
         self._fused_drew = False  # the last fused run drew as it went
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files: always on one
+        device, rank 0 alone under a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def write_csv(self, path: str | Path) -> None:
+        """Write the collected data as the reference's data.csv (rank 0 only
+        under a mesh)."""
+        if self.is_writer:
+            self.data_analytics.write_csv(path, self.video_info.fps)
+
+    def _save(self, tracker: Tracker) -> None:
+        if self.is_writer:
+            tracker.save_predictions()
+
     def restart(self) -> None:
         """Forget every tracker's results and the collected data (the next
         run infers and collects again)."""
@@ -259,7 +287,7 @@ class TrackingRunner:
             t1 = timeit.default_timer()
             self.stage_times[str(tracker)] = t1 - t0
             print(f"{tracker}: {t1 - t0:.2f}s inference time.")
-            tracker.save_predictions()
+            self._save(tracker)
         self.draw_and_collect_data()
 
     def _try_fused_run(self) -> bool:
@@ -289,8 +317,8 @@ class TrackingRunner:
             pipeline = self._fused_pipeline = FusedPipeline(
                 by_name["players_tracker"], by_name["players_keypoints_tracker"],
                 by_name["ball_tracker"], court, chunk=self.fused_chunk,
-                ingest=self.fused_ingest, wire_long_side=self.fused_wire_long_side,
-                ball_stride=self.fused_ball_stride,
+                ingest=self.fused_ingest, association=self.fused_association,
+                wire_long_side=self.fused_wire_long_side, ball_stride=self.fused_ball_stride,
             )
         drawer, stream = None, None
         self._fused_drew = False
@@ -307,8 +335,11 @@ class TrackingRunner:
                 drawer.notify(len(targets[2]))
 
         try:
-            out = pipeline.run(iter(self.frame_store), total_frames=self.total_frames,
-                               stream=stream)
+            if self.mesh is not None:
+                out = pipeline.run_mesh(iter(self.frame_store), self.total_frames, self.mesh)
+            else:
+                out = pipeline.run(iter(self.frame_store), total_frames=self.total_frames,
+                                   stream=stream)
         except BaseException:
             if drawer is not None:
                 drawer.abort()
@@ -324,9 +355,9 @@ class TrackingRunner:
         self.stage_times["fused_inference"] = timeit.default_timer() - t0
         print(f"runner: fused inference {self.stage_times['fused_inference']:.2f}s")
         for name in needed:
-            by_name[name].save_predictions()
+            self._save(by_name[name])
         if court is not None:
-            court.save_predictions()
+            self._save(court)
         return True
 
     # --- draw / collect ----------------------------------------------------
@@ -437,8 +468,9 @@ class TrackingRunner:
     def draw_and_collect_data(self) -> None:
         """Render the annotated video with the minimap projections and
         collect the data; with render=False, collect only (and with
-        neither, do nothing)."""
-        if not self.render:
+        neither, do nothing). Under a mesh only rank 0 draws; the others
+        collect only."""
+        if not self.render or not self.is_writer:
             if self.data_analytics is not None:
                 self.collect_data_only()
             return

@@ -1,0 +1,196 @@
+"""Child processes for the port's multi-rank tests: each runs one rank of a
+gloo process group on the CPU and writes its results under a directory the
+parent reads. Imports no JAX (a child imports the port only), so the test
+modules that compare with the JAX package run the JAX side themselves.
+
+    python tests/_torch_dist.py CASE RANK WORLD PORT OUTDIR
+
+`spawn` starts the ranks with a free port, one intra-op thread each, and a
+time limit; `sharded_clip` and `MaxTrackNet` are the inputs both sides
+build."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+TESTS = Path(__file__).resolve().parent
+REPO = TESTS.parent
+sys.path[:0] = [str(REPO), str(TESTS)]
+
+from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh  # noqa: E402
+from padel_analytics_tpu_torch.parallel import sharded_window_inference  # noqa: E402
+from padel_analytics_tpu_torch.trackers._ballwindow import frame_channels  # noqa: E402
+
+#: The sharded window inference's cases: (bg_mode, stride) at seq_len 8 on a
+#: clip of SHARD_N frames of SHARD_HW, not a multiple of any world size.
+SEQ = 8
+SHARD_N, SHARD_HW = 37, (16, 32)
+SHARDED_CASES = [(bg, stride) for bg in ("concat", "subtract") for stride in (1, SEQ)]
+#: The port's windows a TrackNet call in those cases (smaller than a shard,
+#: and not a divisor of it, so the batches and the carry are exercised).
+SHARD_BATCH = 4
+#: Seconds a rank may take, and its process group's collective timeout.
+TIMEOUT_S = 120
+
+
+def sharded_clip(bg_mode: str, seed: int = 7):
+    """(frames (N, H, W, C_f) uint8, median (H, W, 3) uint8): dark noise with
+    two bright blobs moving at different speeds, each gone for a while,
+    both for some frames."""
+    rng = np.random.default_rng(seed)
+    h, w = SHARD_HW
+    c = frame_channels(bg_mode)
+    frames = rng.integers(0, 90, (SHARD_N, h, w, c), dtype=np.uint8)
+    for i in range(SHARD_N):
+        x0, y0 = (2 + 2 * i) % (w - 4), 3 + i % 9
+        if not 14 <= i < 30:
+            frames[i, y0: y0 + 3, x0: x0 + 3] = 230
+        if not 12 <= i < 27:
+            x1 = (w - 5 - i) % (w - 3)
+            frames[i, 10:13, x1: x1 + 2] = 200
+    median = rng.integers(0, 90, (h, w, 3), dtype=np.uint8)
+    return frames, median
+
+
+class MaxTrackNet(torch.nn.Module):
+    """A decisive TrackNet stand-in: window frame c's heatmap is 1 where the
+    largest of its channels exceeds 0.5, else 0 (exact on both sides, so
+    the ensemble's sums are the same bits)."""
+
+    def __init__(self, bg_mode: str, seq_len: int = SEQ):
+        super().__init__()
+        self.first = 3 if bg_mode == "concat" else 0
+        self.c = frame_channels(bg_mode)
+        self.seq_len = seq_len
+
+    def forward(self, x):
+        maps = [(x[..., self.first + k * self.c: self.first + (k + 1) * self.c].amax(-1) > 0.5)
+                for k in range(self.seq_len)]
+        return torch.stack(maps, dim=-1).float()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(case: str, world: int, out: Path) -> list[Path]:
+    """Run `case` on `world` ranks; returns each rank's output directory.
+    Raises with the ranks' output when one fails or the time runs out."""
+    port = free_port()
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+    dirs = [out / f"rank{r}" for r in range(world)]
+    procs = []
+    for r, d in enumerate(dirs):
+        d.mkdir(parents=True, exist_ok=True)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__)), case, str(r), str(world), str(port), str(d)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, p.returncode, log[-3000:]) for r, (p, log) in enumerate(zip(procs, logs))
+           if p.returncode]
+    if bad:
+        raise RuntimeError(f"case {case!r}, {world} ranks failed: {bad}")
+    return dirs
+
+
+def _sharded(mesh, out: Path) -> None:
+    for bg, stride in SHARDED_CASES:
+        frames, median = sharded_clip(bg)
+        cx, cy, vis = sharded_window_inference(MaxTrackNet(bg), frames, median, mesh,
+                                               seq_len=SEQ, bg_mode=bg, stride=stride,
+                                               batch=SHARD_BATCH)
+        np.save(out / f"{bg}_{stride}.npy", np.stack([cx, cy, vis]))
+
+
+def _fused(mesh, out: Path) -> None:
+    from _torch_fused_cases import N, caches, clip_frames, make_trackers
+    from padel_analytics_tpu_torch.trackers import FusedPipeline
+
+    frames = clip_frames(np.random.default_rng(3))
+    pipe = FusedPipeline(*make_trackers(), chunk=4)
+    (out / "caches.json").write_text(json.dumps(caches(pipe.run_mesh(iter(frames), N, mesh))))
+
+
+def _runner(mesh, out: Path) -> None:
+    """TrackingRunner(mesh=...) saving its files under out/files; the rank's
+    own results and data (written whatever its rank) beside it."""
+    from _torch_fused_cases import caches, clip_frames, make_trackers
+    from padel_analytics_tpu_torch.trackers import TrackingRunner
+    from padel_analytics_tpu_torch.utils.video import MemoryClip
+
+    files = out / "files"
+    files.mkdir()
+    clip = MemoryClip(clip_frames(np.random.default_rng(3)), fps=10.0)
+    trackers = make_trackers(save_dir=files)
+    runner = TrackingRunner(list(trackers), clip, files / "out.mp4", fused=True, fused_chunk=4,
+                            render=False, collect_data=True, mesh=mesh)
+    runner.run()
+    runner.write_csv(files / "data.csv")
+    results = dict(zip(("players", "players_keypoints", "ball", "keypoints"),
+                       (t.results.predictions for t in trackers)))
+    (out / "caches.json").write_text(json.dumps(caches(results)))
+    runner.data_analytics.write_csv(out / "report.csv", 10.0)
+
+
+#: BallTracker(mesh=...)'s cases: (clip length, window stride). 12 frames on
+#: two ranks leave a shard shorter than the halo: the single-device path.
+BALL_CASES = [(26, 1), (26, SEQ), (12, 1)]
+
+
+def ball_tracker(n: int, stride: int, mesh=None, device="cpu"):
+    """A BallTracker at the fused cases' size with the bright-pixel
+    TrackNet."""
+    from _torch_fused_cases import W, H, BrightTrackNet
+    from padel_analytics_tpu_torch.config import BallTrackerConfig
+    from padel_analytics_tpu_torch.trackers import BallTracker
+    from padel_analytics_tpu_torch.utils.video import VideoInfo
+
+    ball = BallTracker(None, compute_dtype=torch.float32, device=device, mesh=mesh,
+                       config=BallTrackerConfig(height=72, width=128, batch_size=4,
+                                                median_max_sample_num=6, window_stride=stride))
+    ball.tracknet.model = BrightTrackNet()
+    return ball.video_info_post_init(VideoInfo(width=W, height=H, fps=10.0, total_frames=n))
+
+
+def _ball(mesh, out: Path) -> None:
+    from _torch_fused_cases import clip_frames
+
+    for n, stride in BALL_CASES:
+        frames = clip_frames(np.random.default_rng(3), n=n)
+        balls = ball_tracker(n, stride, mesh).predict_frames(iter(frames), total_frames=n)
+        (out / f"ball_{n}_{stride}.json").write_text(json.dumps([b.serialize() for b in balls]))
+
+
+CASES = {"sharded": _sharded, "fused": _fused, "runner": _runner, "ball": _ball}
+
+
+def main(case: str, rank: int, world: int, port: int, out: str) -> None:
+    torch.set_num_threads(1)
+    init_distributed("cpu", rank=rank, world_size=world, timeout_s=TIMEOUT_S,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh(data=world, device="cpu")
+        with torch.inference_mode():
+            CASES[case](mesh, Path(out))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])

@@ -3,7 +3,9 @@ YOLOv8m, ResNet-50, the subpixel TrackNet, the banded resize and the NMS on
 the card against their CPU results, and the fused pipeline on the card
 against the per-tracker paths and its CPU run (decisive fakes), the fast
 configuration ('derived' ingest, nonoverlap ball stride), the model court
-and InpaintNet included.
+and InpaintNet included; the multi-device path (an NCCL group of one rank:
+the sharded window inference, run_mesh, BallTracker(mesh=...)) and the
+association scan on the card against their single-device and CPU results.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -14,7 +16,9 @@ neither JAX nor the test suite's conftest, so on the card they run as
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
+import _torch_dist as td
 from _k2_cases import SMALL, dense, small
 from _torch_fused_cases import (
     BLANK,
@@ -432,3 +436,83 @@ def test_fused_model_court_and_inpaint_on_card(dev, tmp_path, mode):
         err = max(abs(p - q) for ka, kb in zip(out["keypoints"], sep_court)
                   for pa, pb in zip(ka, kb) for p, q in zip(pa.xy, pb.xy))
         assert err <= 1e-2
+
+
+@pytest.fixture()
+def nccl_mesh(dev):
+    """The mesh as the card's machine runs it: an NCCL group of one rank on
+    the card, destroyed after the test."""
+    from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh
+
+    init_distributed("cuda", rank=0, world_size=1, timeout_s=120,
+                     init_method=f"tcp://127.0.0.1:{td.free_port()}")
+    try:
+        yield make_mesh(data=1, device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("bg_mode,stride", td.SHARDED_CASES)
+def test_sharded_inference_on_card_equals_cpu(nccl_mesh, bg_mode, stride):
+    """One rank on the card (K2 decodes) against the same pass on the CPU:
+    the ints bit-equal."""
+    from padel_analytics_tpu_torch.parallel import sharded_window_inference
+
+    frames, median = td.sharded_clip(bg_mode)
+    net = td.MaxTrackNet(bg_mode)
+    before = heatmap.launches
+    got = sharded_window_inference(net, frames, median, nccl_mesh, bg_mode=bg_mode, stride=stride,
+                                   batch=td.SHARD_BATCH)
+    assert heatmap.launches > before
+    # The same rank on the CPU, over a gloo group beside the NCCL one.
+    cpu = nccl_mesh._replace(group=dist.new_group(backend="gloo"), device=torch.device("cpu"))
+    want = sharded_window_inference(net, frames, median, cpu, bg_mode=bg_mode, stride=stride,
+                                    batch=td.SHARD_BATCH)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_run_mesh_on_card_equals_run(nccl_mesh):
+    """run_mesh on an NCCL group of one rank (the scan under 'auto') gives
+    run()'s caches with association='device' byte for byte, and K1/K2 run."""
+    frames = clip_frames(np.random.default_rng(25))
+    want = caches(FusedPipeline(*make_trackers(device=nccl_mesh.device), chunk=4,
+                                association="device").run(iter(frames), N))
+    before = heatmap.launches
+    got = caches(FusedPipeline(*make_trackers(device=nccl_mesh.device), chunk=4)
+                 .run_mesh(iter(frames), N, nccl_mesh))
+    assert heatmap.launches > before
+    assert got == want
+
+
+def test_ball_tracker_mesh_on_card_equals_single_device(nccl_mesh):
+    for n, stride in td.BALL_CASES:
+        frames = clip_frames(np.random.default_rng(3), n=n)
+        want = td.ball_tracker(n, stride).predict_frames(iter(frames), total_frames=n)
+        got = td.ball_tracker(n, stride, nccl_mesh, nccl_mesh.device).predict_frames(
+            iter(frames), total_frames=n)
+        assert caches({"b": got}) == caches({"b": want}), (n, stride)
+
+
+def _crowd(seed, n_frames=40, d=10):
+    """Crowded linear tracks with noise, dropouts and low scores (the JAX
+    package's test scene, without JAX)."""
+    rng = np.random.default_rng(seed)
+    pos = np.stack([rng.uniform(80, 1080, d), rng.uniform(80, 520, d)], -1)
+    vel, size = rng.uniform(-6, 6, (d, 2)), rng.uniform(40, 90, (d, 2))
+    c = pos + vel * np.arange(n_frames)[:, None, None] + rng.normal(0, 1.5, (n_frames, d, 2))
+    boxes = np.concatenate([c, c + size], -1).astype(np.float32)
+    scores = rng.choice([0.05, 0.18, 0.25, 0.35, 0.7, 0.9], (n_frames, d)).astype(np.float32)
+    return boxes, scores, rng.random((n_frames, d)) > 0.06
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_association_scan_on_card_equals_cpu(dev, seed):
+    from padel_analytics_tpu_torch.ops import associate_clip
+
+    boxes, scores, valid = _crowd(seed)
+    want, want_state = associate_clip(*map(torch.from_numpy, (boxes, scores, valid)))
+    got, state = associate_clip(*(torch.from_numpy(a).to(dev) for a in (boxes, scores, valid)))
+    assert torch.equal(got.cpu(), want)
+    for a, b in zip(state, want_state):
+        assert torch.equal(a.cpu(), b)

@@ -235,25 +235,14 @@ def test_staging_ring_reuses_slots():
 
 
 def _left_for_later():
-    players, pose, ball, court = make_trackers()
-    pipe = FusedPipeline(players, pose, ball, court)
-    return {
-        "device association": lambda: FusedPipeline(players, pose, ball, court,
-                                                    association="device"),
-        "run_staged": lambda: pipe.run_staged(iter([]), 0),
-        "run_mesh": lambda: pipe.run_mesh(iter([]), 0, None),
-    }
+    pipe = FusedPipeline(*make_trackers())
+    return {"run_staged": lambda: pipe.run_staged(iter([]), 0)}
 
 
 @pytest.mark.parametrize("item", sorted(_left_for_later()))
 def test_unported_modes_raise(item):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _left_for_later()[item]()
-
-
-def test_device_association_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        _left_for_later()["device association"]()
 
 
 def _formerly_unported(tmp_path, name):
@@ -273,12 +262,13 @@ def _formerly_unported(tmp_path, name):
         ball.tracknet.model = trackers[2].tracknet.model
         trackers[2] = ball.video_info_post_init(trackers[2].video_info)
     kwargs = {"derived ingest": {"ingest": "derived", "wire_long_side": 64},
-              "ball_stride=seq_len": {"ball_stride": 8}}.get(name, {})
+              "ball_stride=seq_len": {"ball_stride": 8},
+              "device association": {"association": "device"}}.get(name, {})
     return trackers, kwargs
 
 
 @pytest.mark.parametrize("name", ["derived ingest", "ball_stride=seq_len", "model-based court",
-                                  "InpaintNet"])
+                                  "InpaintNet", "device association"])
 def test_formerly_unported_modes_run(rng, tmp_path, name):
     """The modes that raised NotImplementedError before they were ported
     now run: one result a frame for every tracker."""
@@ -292,20 +282,12 @@ def test_formerly_unported_modes_run(rng, tmp_path, name):
     assert (trackers[2].inpaintnet is not None) == (name == "InpaintNet")
 
 
-@pytest.mark.parametrize("kwargs", [{"fused_association": "device"}])
-def test_runner_refuses_unported_fused_options(rng, tmp_path, kwargs):
-    clip = tmp_path / "clip.mp4"
-    _write_clip(clip, clip_frames(rng, n=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrackingRunner([], clip, tmp_path / "o.mp4", fused=True, render=False, **kwargs)
-
-
 @pytest.mark.parametrize("kwargs", [{"fused_ingest": "derived", "fused_wire_long_side": 64},
-                                    {"fused_ball_stride": 8}],
-                         ids=["derived ingest", "ball_stride=seq_len"])
+                                    {"fused_ball_stride": 8}, {"fused_association": "device"}],
+                         ids=["derived ingest", "ball_stride=seq_len", "device association"])
 def test_runner_takes_fast_fused_options(rng, tmp_path, kwargs):
-    """The runner's 'derived' and nonoverlap options, once refused, run the
-    fused pipeline to one result a frame."""
+    """The runner's 'derived', nonoverlap and device association options,
+    once refused, run the fused pipeline to one result a frame."""
     clip = tmp_path / "clip.mp4"
     _write_clip(clip, clip_frames(rng, n=14))
     trackers = make_trackers(n=14)
