@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's ball, players, pose, fused, collect, model-court and multi-device paths and its CLI on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's ball, players, pose, fused, collect,
+model-court, multi-device and training paths and its CLI on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
@@ -133,7 +134,30 @@ is printed):
    ByteTrack on the same detections, and a pass under torch.profiler. (c) run() with fused_association='device' at full
    width, its frames/s. (d) BallTracker(mesh=...) against the single-device
    ball: equal with the decisive fake at 1080p, the agreement printed at
-   full width with random weights.
+   full width with random weights; and one YOLOv8m train step through the
+   mesh (17 b);
+17. training, fp32 with TF32 off, with seeded LeCun weights: (a) each family
+   at full width on one fixed synthetic batch: YOLOv8m detect and
+   YOLOv8m-pose (13 keypoints) at 640, batch 8; TrackNet (concat, 27
+   channels) at 288x512, seq 8, batch 8; ResNet-50 court at 224, batch 8;
+   InpaintNet, seq 16, batch 32. One forward and backward on the card
+   against the same on the host CPU (same weights and batch; YOLOv8m and
+   TrackNet at batch 2; YOLO's assignment made once and given to both) and
+   a float64 CPU step: the loss within 1e-4 of the CPU's, the gradient no
+   farther from float64 than twice the CPU's fp32 gradient is (+1e-4,
+   relative L2). Then 10
+   Adam steps: finite losses that fall, the median step ms after 2
+   warm-up steps and the peak device memory. (b) In phase 16's NCCL group
+   of one rank, one YOLOv8m step through the mesh path against the no-mesh
+   step. (c) Train -> serve: a synthetic 96-frame rally directory (frames
+   and csv/<id>_ball.csv) trained on by apps.train_tracknet on the card;
+   its .pt served by BallTracker (channel_quirk=False: RGB frames, as in
+   training) through K1 and K2 (launches counted, the
+   kernels line's 'train_serve'), the mean ball error against the truth
+   printed for random and trained weights, the trained one lower; then
+   apps.train_yolo (YOLOv8m) on 16 synthetic scenes and apps.evaluate on
+   its checkpoint through K1 (the kernels line's 'evaluate'), its JSON line
+   printed.
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
@@ -149,8 +173,11 @@ power limit with --mesh-ranks); the last line is {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
+import functools
+import io
 import json
 import math
 import socket
@@ -166,7 +193,7 @@ import torch.nn.functional as F
 
 from padel_analytics_tpu_torch import _build
 from padel_analytics_tpu_torch.analytics.data_analytics import COLUMNS
-from padel_analytics_tpu_torch.apps import cli
+from padel_analytics_tpu_torch.apps import cli, evaluate, train_tracknet, train_yolo
 from padel_analytics_tpu_torch.config import (
     BallTrackerConfig,
     CourtKeypointsTrackerConfig,
@@ -196,6 +223,12 @@ from padel_analytics_tpu_torch.trackers import (
     TrackingRunner,
 )
 from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh
+from padel_analytics_tpu_torch.training import data as tdata
+from padel_analytics_tpu_torch.training import init_train_state
+from padel_analytics_tpu_torch.training import inpaintnet as tinp
+from padel_analytics_tpu_torch.training import resnet_court as tcourt
+from padel_analytics_tpu_torch.training import tracknet as ttn
+from padel_analytics_tpu_torch.training import yolo as tyolo
 from padel_analytics_tpu_torch.trackers import fused as fused_mod
 from padel_analytics_tpu_torch.trackers.fused import PACK_THREADS
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
@@ -2295,6 +2328,372 @@ def phase_mesh_cards(world: int, smi: str) -> dict:
     return {"conv3x3_bn_act": ranks[0]["launches"][0], "heatmap_cc": ranks[0]["launches"][1]}
 
 
+
+# ----------------------------------------------------------- phase 17: training
+
+#: Adam steps each family takes on its fixed batch, and the warm-up steps the
+#: median step time leaves out.
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2
+#: One step on the card against the same step on the host CPU (fp32, TF32
+#: off) and a float64 step on the CPU: the card's loss within 1e-4 of the
+#: CPU's (relative), and the card's gradient no farther from the float64
+#: gradient than twice the CPU's fp32 gradient is, plus 1e-4 (relative L2
+#: over every parameter). The fp32 step of a random-weight network is
+#: ill-conditioned whoever computes it (on the CPU the port's and the JAX
+#: package's TrackNet gradients differ by 0.7%, each 0.4-0.65% from float64,
+#: tests/_torch_train.py; ResNet-50's card and CPU gradients by 2.2%), so
+#: the float64 step is the yardstick; the loss is well-conditioned.
+CARD_CPU_LOSS_TOL, CARD_F64_RATIO, CARD_F64_FLOOR = 1e-4, 2.0, 1e-4
+#: YOLOv8m's and TrackNet's CPU steps take a batch of 2 (8 cores; at 8 each
+#: would take about a minute); ResNet-50 and InpaintNet their full batch.
+#: The train -> serve check's TrackNet epochs (11 steps each).
+SERVE_EPOCHS = 30
+#: The train -> serve rally (frames, width, height), the apps' device and the
+#: ball tracker's (its default: the card), and its model resolution.
+SERVE_CLIP, SERVE_DEVICE, SERVE_HW = (96, 1024, 576), "cuda", (288, 512)
+CPU_BATCH = {"yolo_det": 2, "yolo_pose": 2, "tracknet": 2, "court_resnet": 8, "inpaintnet": 32}
+TRAIN_FAMILIES = tuple(CPU_BATCH)
+#: The families' full widths: YOLOv8m at 640, TrackNet at 288x512, ResNet-50
+#: at 224 (the models' own).
+YOLO_VARIANT, YOLO_SIZE, TRACKNET_HW, RESNET_SIZE = "m", 640, (288, 512), 224
+
+
+def yolo_scenes(rng, n: int, size: int, nk: int, max_gt: int = 4):
+    """n (size, size, 3) uint8 scenes of 1-`max_gt` bright upright boxes on
+    a textured court, and their ultralytics labels: (N, max_gt) classes 0,
+    (N, max_gt, 4) cxcywh in [0, 1], (N, max_gt, nk, 3) keypoints (x, y in
+    [0, 1], visibility 2) inside each box, (N, max_gt) mask."""
+    images = rng.integers(30, 90, (n, size, size, 3), dtype=np.uint8)
+    images[..., 2] = np.clip(images[..., 2].astype(int) + 80, 0, 255)
+    boxes = np.zeros((n, max_gt, 4), np.float32)
+    kpts = np.zeros((n, max_gt, nk, 3), np.float32)
+    mask = np.zeros((n, max_gt), bool)
+    for i in range(n):
+        for j in range(rng.integers(1, max_gt + 1)):
+            bw, bh = rng.uniform(0.08, 0.2) * size, rng.uniform(0.2, 0.45) * size
+            x0, y0 = rng.uniform(0, size - bw), rng.uniform(0, size - bh)
+            images[i, int(y0): int(y0 + bh), int(x0): int(x0 + bw)] = rng.integers(
+                150, 255, 3, dtype=np.uint8)
+            boxes[i, j] = ((x0 + bw / 2) / size, (y0 + bh / 2) / size, bw / size, bh / size)
+            kx, ky = rng.uniform(x0, x0 + bw, nk), rng.uniform(y0, y0 + bh, nk)
+            kpts[i, j] = np.stack([kx / size, ky / size, np.full(nk, 2.0)], -1)
+            mask[i, j] = True
+    return images, np.zeros((n, max_gt), np.int32), boxes, kpts, mask
+
+
+def _xyxy_px(boxes, size: int) -> np.ndarray:
+    b = boxes * size
+    return np.concatenate([b[..., :2] - b[..., 2:] / 2, b[..., :2] + b[..., 2:] / 2], -1)
+
+
+def ball_rally(n: int, w: int, h: int, seed: int):
+    """A (h, w) rally clip: a textured court with lines, sensor noise, a
+    yellow ball of radius w / 170 on parabolic arcs, absent every 13th
+    frame. Returns (frames uint8 list, ground truth (n, 2) px, visibility
+    (n,))."""
+    rng = np.random.default_rng(seed)
+    bg = np.empty((h, w, 3), np.int16)
+    bg[:] = (40, 90, 160)
+    lw = max(2, w // 200)
+    bg[:, w // 6: w // 6 + lw] = bg[:, 5 * w // 6: 5 * w // 6 + lw] = bg[h // 2: h // 2 + lw] = 255
+    bg = np.clip(bg + rng.integers(-15, 15, bg.shape), 0, 245).astype(np.uint8)
+    r = max(2, w // 170)
+    ys, xs = np.mgrid[-r: r + 1, -r: r + 1]
+    disk = ys ** 2 + xs ** 2 <= r * r
+    frames, gt, vis = [], np.zeros((n, 2), np.float32), np.zeros(n, np.int64)
+    for i in range(n):
+        f = bg + rng.integers(0, 10, bg.shape, dtype=np.uint8)
+        j = i % 40
+        cx, cy = int(w * (0.1 + 0.02 * j)), int(h * (0.8 - 0.045 * j + 0.0012 * j * j))
+        if i % 13 != 12:
+            f[cy - r: cy + r + 1, cx - r: cx + r + 1][disk] = (235, 240, 80)
+            gt[i], vis[i] = (cx, cy), 1
+        frames.append(f)
+    return frames, gt, vis
+
+
+def _train_family(name: str, rng):
+    """(the model with seeded LeCun weights, on the CPU; its fixed full-width
+    batch as CPU tensors; loss(model, *batch, targets=None): the train-mode
+    forward and loss; the step maker taking the mesh)."""
+    if name.startswith("yolo"):
+        nk = 13 if name == "yolo_pose" else 0
+        model = YOLOv8(YOLO_VARIANT, 1, nk)
+        images, labels, boxes, kpts, mask = yolo_scenes(rng, 8, YOLO_SIZE, nk or 1)
+        k = kpts.copy()
+        k[..., :2] *= YOLO_SIZE
+        batch = [torch.from_numpy(images).float() / 255, torch.from_numpy(labels),
+                 torch.from_numpy(_xyxy_px(boxes, YOLO_SIZE))]
+        batch += [torch.from_numpy(k)] if nk else []
+        batch += [torch.from_numpy(mask)]
+
+        def loss(m, *b, targets=None):
+            return tyolo.yolo_loss(m, *b, pose=bool(nk), targets=targets)
+
+        step = functools.partial(tyolo.make_yolo_train_step, bool(nk))
+    elif name == "tracknet":
+        model, _ = make_tracknet(8, "concat")
+        frames, gt, vis = ball_rally(15, TRACKNET_HW[1], TRACKNET_HW[0], seed=17)
+        clip = tdata.RallyClip(frames=np.stack(frames), coords=gt, visibility=vis.astype(
+            np.float32), median=np.median(np.stack(frames), 0).astype(np.uint8))
+        batch = list(next(tdata.window_batches(clip, 8, 8, np.random.default_rng(0))))
+        loss, step = ttn.tracknet_loss, ttn.make_tracknet_train_step
+    elif name == "court_resnet":
+        model = ResNet50Regressor(24)
+        images = torch.from_numpy(rng.integers(0, 255, (8, RESNET_SIZE, RESNET_SIZE, 3)).astype(
+            np.float32))
+        batch = [imagenet_normalize(images / 255), torch.from_numpy(
+            rng.uniform(0.1, 0.9, (8, 24)).astype(np.float32))]
+        loss, step = tcourt.court_loss, tcourt.make_court_train_step
+    else:
+        model = InpaintNet()
+        t = np.arange(400, dtype=np.float32)
+        coords = np.stack([960 + 700 * np.sin(t / 40), 540 + 300 * np.cos(t / 23)], -1)
+        rally = tdata.synthesize_inpaint_rally(coords, np.ones(400, np.float32), (1920, 1080),
+                                               rng, gap_rate=0.1)
+        batch = list(next(tdata.coordinate_window_batches(rally, 16, 32, rng)))
+        loss, step = tinp.inpaintnet_loss, tinp.make_inpaintnet_train_step
+    lecun_normal_(model, torch.Generator().manual_seed(17))
+    return model, batch, loss, step
+
+
+def _grad_rel_l2(a: torch.nn.Module, b: torch.nn.Module) -> tuple[float, float]:
+    """(relative L2 error of a's gradient against b's over every parameter,
+    the worst tensor's)."""
+    num = den = worst = 0.0
+    gb = dict(b.named_parameters())
+    for k, p in a.named_parameters():
+        d2 = float((p.grad.cpu() - gb[k].grad.cpu()).norm()) ** 2
+        w2 = float(gb[k].grad.norm()) ** 2
+        num, den, worst = num + d2, den + w2, max(worst, (d2 / max(w2, 1e-60)) ** 0.5)
+    return (num / den) ** 0.5, worst
+
+
+def _f64(t: torch.Tensor) -> torch.Tensor:
+    return t.double() if t.is_floating_point() else t
+
+
+def card_vs_cpu_step(dev, name: str, model, batch, loss) -> dict:
+    """One forward and backward of `loss` from the same weights on the same
+    batch (its first CPU_BATCH rows): on the card and on the host CPU in
+    fp32 with TF32 off, and on the CPU in float64 (the models keep their
+    own fp32 casts: the heads' outputs, the losses). YOLO's assignment is
+    made once, on the CPU model's outputs, and given to all three: the
+    card's own differs only where two alignment metrics tie within rounding
+    (the count is printed)."""
+    n = CPU_BATCH[name]
+    cpu_b = [t[:n] for t in batch]
+    card_b = [t.to(dev) for t in cpu_b]
+    models = {"cpu": copy.deepcopy(model).train(), "card": copy.deepcopy(model).to(dev).train(),
+              "f64": copy.deepcopy(model).double().train()}
+    inputs = {"cpu": cpu_b, "card": card_b, "f64": [_f64(t) for t in cpu_b]}
+    targets, extra = None, ""
+    with no_tf32():
+        if name.startswith("yolo"):
+            gts = cpu_b[1:]
+            with torch.no_grad():
+                anc, _ = tyolo.anchor_tensors((YOLO_SIZE, YOLO_SIZE), "cpu")
+                out = copy.deepcopy(model).train()(cpu_b[0], raw=True)
+                out_c = copy.deepcopy(model).to(dev).train()(card_b[0], raw=True)
+                targets = tyolo.assign_batch(out["scores"], out["boxes"], anc, gts[0], gts[1],
+                                             gts[-1])
+                own = tyolo.assign_batch(out_c["scores"], out_c["boxes"], anc.to(dev),
+                                         *[card_b[i] for i in (1, 2, len(card_b) - 1)])
+            check(int(targets[0].sum()) > 0, f"train {name}: no anchor assigned")
+            extra = (f", fg anchors {int(targets[0].sum())}, the card's own assignment differs "
+                     f"at {int((own[0].cpu() != targets[0]).sum())}")
+        losses = {}
+        for k, m in models.items():
+            kw = {}
+            if targets is not None:
+                kw["targets"] = tuple((t.to(dev) if k == "card" else _f64(t) if k == "f64" else t)
+                                      for t in targets)
+            lk = loss(m, *inputs[k], **kw)
+            lk.backward()
+            losses[k] = float(lk.detach())
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    card_err, worst = _grad_rel_l2(models["card"], models["f64"])
+    cpu_err, _ = _grad_rel_l2(models["cpu"], models["f64"])
+    card_cpu, _ = _grad_rel_l2(models["card"], models["cpu"])
+    check(math.isfinite(losses["card"]) and loss_rel <= CARD_CPU_LOSS_TOL,
+          f"train {name}: card loss {losses['card']} vs CPU {losses['cpu']}")
+    check(card_err <= CARD_F64_RATIO * cpu_err + CARD_F64_FLOOR,
+          f"train {name}: card gradient {card_err} from float64, the CPU's {cpu_err}")
+    print(f"train {name}: one step at batch {n}: loss card {losses['card']:.6f}, CPU "
+          f"{losses['cpu']:.6f} (rel {loss_rel:.2e}), float64 {losses['f64']:.6f}; gradient "
+          f"rel L2 from float64: card {card_err:.2e} (worst tensor {worst:.2e}), CPU fp32 "
+          f"{cpu_err:.2e}; card from CPU {card_cpu:.2e}{extra}")
+    return {"loss_rel": loss_rel, "grad_rel_l2_f64": card_err, "cpu_grad_rel_l2_f64": cpu_err,
+            "card_cpu_grad_rel_l2": card_cpu}
+
+
+def phase_train(dev, smi: str) -> dict:
+    """17 (a): each family at full width: TRAIN_STEPS Adam steps on its fixed
+    batch (finite losses that fall), the median step ms after the warm-up,
+    the peak device memory; the card step against the CPU step."""
+    rng = np.random.default_rng(17)
+    out = {}
+    for name in TRAIN_FAMILIES:
+        model, batch, loss, step = _train_family(name, rng)
+        err = card_vs_cpu_step(dev, name, model, batch, loss)
+        state = init_train_state(model.to(dev), 1e-3)
+        card_b = [t.to(dev) for t in batch]
+        fn = step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, l = fn(state, *card_b)
+            losses.append(float(l))  # a download: the step has ended
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(math.isfinite(v) for v in losses), f"train {name}: losses {losses}")
+        check(losses[-1] < losses[0], f"train {name}: the loss did not fall: {losses}")
+        ms = float(np.median(times[TRAIN_WARMUP:])) * 1e3
+        shape = tuple(batch[0].shape)
+        print(f"train {name}: batch {shape}, {TRAIN_STEPS} Adam steps, loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}; median step {ms:.1f} ms (steps {TRAIN_WARMUP + 1}-"
+              f"{TRAIN_STEPS}), peak device memory {peak:.2f} GiB, fp32 TF32 off; {smi}")
+        out[name] = {"step_ms": ms, "peak_gib": peak, **err}
+        del state, model, card_b
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_mesh(mesh) -> None:
+    """17 (b): one YOLOv8m step through the mesh path (an NCCL group of one
+    rank: the BatchNorm statistics, the normalizers, the gradients and the
+    loss all-reduced) against the no-mesh step from the same weights on the
+    same batch: the loss within 1e-5 (relative), the gradient within 1e-3
+    (relative L2; cuDNN's and the gather's backward sum in a nondeterministic
+    order), the running statistics within 1e-5 of their largest."""
+    model, batch, _, _ = _train_family("yolo_det", np.random.default_rng(18))
+    b = [t.to(mesh.device) for t in batch]
+    states, losses = [], []
+    for m in (mesh, None):
+        state = init_train_state(copy.deepcopy(model).to(mesh.device), 1e-3)
+        state, loss = tyolo.make_yolo_train_step(mesh=m)(state, *b)
+        states.append(state)
+        losses.append(float(loss))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    grad_rel, worst = _grad_rel_l2(states[0].model, states[1].model)
+    bufs = dict(states[1].model.named_buffers())
+    stats = max(float((v - bufs[k]).abs().max()) / max(float(bufs[k].abs().max()), 1e-30)
+                for k, v in states[0].model.named_buffers() if "running" in k)
+    check(loss_rel <= 1e-5, f"train mesh: loss {losses[0]} vs {losses[1]}")
+    check(grad_rel <= 1e-3, f"train mesh: gradient rel L2 {grad_rel}")
+    check(stats <= 1e-5, f"train mesh: running statistics {stats}")
+    print(f"train mesh: YOLOv8m step through an NCCL group of one rank vs no mesh: loss "
+          f"{losses[0]:.6f} vs {losses[1]:.6f} (rel {loss_rel:.2e}), gradient rel L2 "
+          f"{grad_rel:.2e} (worst tensor {worst:.2e}), running statistics {stats:.2e}")
+
+
+def _write_png(path: Path, image: np.ndarray) -> None:
+    try:
+        import cv2
+
+        cv2.imwrite(str(path), cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(image).save(path)
+
+
+def _ball_error(tracker, frames, gt, vis, cap: float) -> tuple[float, int]:
+    """Mean distance (px) of the tracker's ball from the truth over the
+    visible frames, a miss or a distance beyond `cap` counted as `cap`;
+    and the frames within 5 px."""
+    h, w = frames[0].shape[:2]
+    tracker.video_info_post_init(VideoInfo(width=w, height=h, fps=30.0, total_frames=len(frames)))
+    with torch.inference_mode():
+        tracker.predict_and_update(iter(frames), total_frames=len(frames))
+    errs = [min(math.hypot(b.xy[0] - g[0], b.xy[1] - g[1]) if b.visibility else cap, cap)
+            for b, g, v in zip(tracker.results, gt, vis) if v]
+    return float(np.mean(errs)), sum(e <= 5 for e in errs)
+
+
+def phase_train_serve(smi: str) -> dict:
+    """17 (c): apps.train_tracknet on a synthetic rally directory on the
+    card, its .pt served by BallTracker through K1 and K2 with a smaller
+    ball error than random weights; apps.train_yolo on synthetic scenes and
+    apps.evaluate on its checkpoint through K1."""
+    n, w, h = SERVE_CLIP
+    frames, gt, vis = ball_rally(n, w, h, seed=19)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        fd = root / "frame" / "r1"
+        fd.mkdir(parents=True)
+        (root / "csv").mkdir()
+        for i, f in enumerate(frames):
+            _write_png(fd / f"{i}.png", f)
+        rows = ["Frame,X,Y,Visibility"] + [f"{i},{int(g[0])},{int(g[1])},{v}"
+                                           for i, (g, v) in enumerate(zip(gt, vis))]
+        (root / "csv" / "r1_ball.csv").write_text("\n".join(rows) + "\n")
+        t0 = time.perf_counter()
+        check(train_tracknet.main(["--match-dir", str(root), "--rallies", "r1", "--epochs",
+                                   str(SERVE_EPOCHS), "--batch", "8", "--device", SERVE_DEVICE,
+                                   "--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1]),
+                                   "--out", str(root / "tn.pt")]) == 0, "train_tracknet")
+        train_s = time.perf_counter() - t0
+        cap = 50.0
+        # RGB frames reach TrackNet as they do in training: without the
+        # reference's median-buffer channel swap, which would show a model
+        # trained on RGB the clip's first 400 frames (all of this one) in BGR.
+        cfg = BallTrackerConfig(height=SERVE_HW[0], width=SERVE_HW[1])
+        random_err = _ball_error(BallTracker(None, config=cfg, device=SERVE_DEVICE, seed=0,
+                                             channel_quirk=False), frames, gt, vis, cap)
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        trained = BallTracker(str(root / "tn.pt"), config=cfg, device=SERVE_DEVICE,
+                              channel_quirk=False)
+        trained_err = _ball_error(trained, frames, gt, vis, cap)
+        launches["train_serve"] = {"conv3x3_bn_act": conv3x3.launches,
+                                   "heatmap_cc": heatmap.launches}
+        chunks = -(-(n + 7) // 8)
+        check(conv3x3.launches == 17 * chunks and heatmap.launches >= chunks,
+              f"train -> serve: launches {launches['train_serve']}")
+        check(trained_err[0] < random_err[0],
+              f"train -> serve: ball error {trained_err} not below random weights' {random_err}")
+        print(f"train -> serve: apps.train_tracknet {SERVE_EPOCHS} epochs on a {n}-frame {w}x{h} "
+              f"rally ({train_s:.1f} s); BallTracker ball error over the {int(vis.sum())} visible "
+              f"frames (miss = {cap:.0f} px): random weights {random_err[0]:.2f} px "
+              f"({random_err[1]} within 5 px), trained {trained_err[0]:.2f} px "
+              f"({trained_err[1]} within 5 px); launches {launches['train_serve']}; {smi}")
+
+        images, labels, boxes, kpts, mask = yolo_scenes(np.random.default_rng(20), 16, YOLO_SIZE, 1)
+        (root / "images").mkdir()
+        (root / "labels").mkdir()
+        for i in range(len(images)):
+            _write_png(root / "images" / f"im{i}.png", images[i])
+            (root / "labels" / f"im{i}.txt").write_text("".join(
+                f"0 {' '.join(f'{v:.5f}' for v in boxes[i, j])}\n" for j in range(4)
+                if mask[i, j]))
+        data = ["--images", str(root / "images"), "--labels", str(root / "labels"),
+                "--imgsz", str(YOLO_SIZE), "--variant", YOLO_VARIANT]
+        t0 = time.perf_counter()
+        check(train_yolo.main(data + ["--epochs", "3", "--batch", "8", "--device", SERVE_DEVICE,
+                                      "--out", str(root / "det.pt")]) == 0, "train_yolo")
+        yolo_s = time.perf_counter() - t0
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            check(evaluate.main(data + ["--weights", str(root / "det.pt"), "--conf", "0.01",
+                                        "--device", SERVE_DEVICE]) == 0, "evaluate")
+        record = json.loads(buf.getvalue().strip().splitlines()[-1])
+        launches["evaluate"] = {"conv3x3_bn_act": conv3x3.launches,
+                                "heatmap_cc": heatmap.launches}
+        check(conv3x3.launches > 0, "evaluate: K1 did not launch")
+        check(record["images"] == 16 and 0.0 <= record["map"] <= 1.0, f"evaluate: {record}")
+        print(f"train -> evaluate: apps.train_yolo (YOLOv8{YOLO_VARIANT}, 16 scenes at "
+              f"{YOLO_SIZE}, 3 epochs of batch "
+              f"8, {yolo_s:.1f} s), apps.evaluate through K1 ({conv3x3.launches} launches): "
+              f"{json.dumps(record)}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -2339,8 +2738,11 @@ def main() -> None:
         mesh = make_mesh(data=1, device=dev)
         phase_mesh_decisive(mesh)
         by_path["mesh"] = phase_mesh(mesh, synthetic_players(128, seed=9), smi)
+        phase_train_mesh(mesh)
     finally:
         torch.distributed.destroy_process_group()
+    phase_train(dev, smi)
+    by_path.update(phase_train_serve(smi))
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

@@ -8,6 +8,7 @@ checkpoint's names, so either source loads with `load_state_dict`.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,13 +24,59 @@ from ..ops.conv3x3 import (
 )
 
 
-class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm (running statistics) + activation, in
-    eval mode only.
+@contextlib.contextmanager
+def batch_stats_over(model: nn.Module, mesh):
+    """Inside the block, the train-mode BatchNorms of `model`'s ConvBNs
+    reduce their batch statistics over every rank of `mesh`
+    (parallel/mesh.py): the global batch the JAX package's sharded train
+    step sees. mesh None keeps them this process's."""
+    convs = [m for m in model.modules() if isinstance(m, ConvBN)]
+    for m in convs:
+        m.stats_mesh = mesh
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.stats_mesh = None
 
-    Every stride-1 3x3 block runs as the fused conv + folded-BN + act of
-    ops/conv3x3.py: kernel K1 on a CUDA tensor (bf16), the plain version on
-    a CPU tensor. The folded scale/bias and the packed kernel weight are
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d, momentum: float,
+                     mesh=None) -> torch.Tensor:
+    """Flax `nn.BatchNorm(use_running_average=False)` over an (N, C, H, W)
+    batch, under autograd: the mean and the fast variance E[y^2] - E[y]^2
+    (clipped at 0) reduced in at least fp32 (all-reduced over `mesh`), then
+    (y - mean) * (scale * rsqrt(var + eps)) + bias. The running statistics
+    take Flax's update, ra = momentum * ra + (1 - momentum) * batch, with
+    the biased batch variance (F.batch_norm would put the unbiased one
+    there)."""
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
+    stats = torch.cat([yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3)),
+                       yf.new_full((1,), y.numel() // y.shape[1])])
+    if mesh is not None:
+        stats = mesh.all_reduce_autograd(stats)
+    c = y.shape[1]
+    n = stats[-1].detach()
+    mean = stats[:c] / n
+    var = torch.clamp(stats[c: 2 * c] / n - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((yf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]).to(y.dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv2d (no bias) + BatchNorm + activation.
+
+    In train mode (`self.training`) the conv is F.conv2d and the BatchNorm
+    takes its batch statistics and Flax's running update
+    (`batch_norm_train`, momentum `bn_momentum` in Flax's convention: 0.9
+    here, 0.97 for YOLOv8, 0.99 for ResNet-50), all under autograd; the
+    JAX package trains on XLA's convs too, never through its Pallas kernel.
+
+    In eval mode every stride-1 3x3 block runs as the fused conv + folded-BN
+    + act of ops/conv3x3.py: kernel K1 on a CUDA tensor (bf16), the plain
+    version on a CPU tensor. The folded scale/bias and the packed kernel weight are
     computed once per weight (cached until the parameters change), not per
     call. Strided and non-3x3 convs use F.conv2d with symmetric k//2
     padding (torch-style (1, 1) at stride 2, as the JAX package pads them
@@ -37,8 +84,11 @@ class ConvBN(nn.Module):
     to x's dtype."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, act: str = "relu", bn_eps: float = 1e-5):
+                 stride: int = 1, act: str = "relu", bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.9):
         super().__init__()
+        self.bn_momentum = bn_momentum
+        self.stats_mesh = None  # set by batch_stats_over
         self.conv = nn.Conv2d(in_features, features, kernel_size, stride,
                               padding=kernel_size // 2, bias=False)
         self.bn = nn.BatchNorm2d(features, eps=bn_eps)
@@ -64,7 +114,10 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("ConvBN runs in eval mode only (training is not ported)")
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight.to(x.dtype),
+                         stride=self.conv.stride, padding=self.conv.padding)
+            y = batch_norm_train(y, self.bn, self.bn_momentum, self.stats_mesh)
+            return _act(y, self.act).permute(0, 2, 3, 1)
         if self.fused:
             on_cuda = x.device.type == "cuda"
             w_hwio, scale, bias, wk = self._folded(packed=on_cuda)

@@ -28,6 +28,8 @@ from .layers import ConvBN
 
 IMAGENET_MEAN = (0.485, 0.465, 0.406)  # the reference's 0.465 (sic)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+#: The JAX package's ResNet BatchNorms are Flax's defaults: momentum 0.99.
+BN_MOMENTUM = 0.99
 
 
 class _Bottleneck(nn.Module):
@@ -37,11 +39,11 @@ class _Bottleneck(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = ConvBN(in_features, features, 1, act="relu")
-        self.conv2 = ConvBN(features, features, 3, stride, act="relu")
-        self.conv3 = ConvBN(features, features * 4, 1, act="none")
-        self.down_conv = (ConvBN(in_features, features * 4, 1, stride, act="none")
-                          if downsample else None)
+        self.conv1 = ConvBN(in_features, features, 1, act="relu", bn_momentum=BN_MOMENTUM)
+        self.conv2 = ConvBN(features, features, 3, stride, act="relu", bn_momentum=BN_MOMENTUM)
+        self.conv3 = ConvBN(features, features * 4, 1, act="none", bn_momentum=BN_MOMENTUM)
+        self.down_conv = (ConvBN(in_features, features * 4, 1, stride, act="none",
+                                 bn_momentum=BN_MOMENTUM) if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv3(self.conv2(self.conv1(x)))
@@ -55,7 +57,7 @@ class ResNet50Regressor(nn.Module):
 
     def __init__(self, num_outputs: int = 24, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
-        self.conv1 = ConvBN(3, 64, 7, 2, act="relu")
+        self.conv1 = ConvBN(3, 64, 7, 2, act="relu", bn_momentum=BN_MOMENTUM)
         self.blocks: list[str] = []
         in_features = 64
         for stage, (f, n) in enumerate(zip((64, 128, 256, 512), stage_sizes)):

@@ -90,7 +90,8 @@ class _SubpixelUpConvBN(ConvBN):
 
     def forward(self, x_low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("the subpixel rewrite runs in eval mode only")
+            # Training takes the dense upsample + conv, as the JAX package's.
+            return super().forward(torch.cat([upsample_nearest_2x(x_low), skip], dim=-1))
         n, h, w, c_up = x_low.shape
         on_cuda = skip.device.type == "cuda"
         phases, k_skip, scale, bias = self._operands(c_up, x_low.dtype, on_cuda)

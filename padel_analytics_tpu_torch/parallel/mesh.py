@@ -8,9 +8,10 @@ where the caller asks for it), and the 'data' axis is the process group
 over them: NCCL between cards, gloo on the CPU. The frame axis of a clip
 splits over it (parallel/sharded_inference.py, `FusedPipeline.run_mesh`).
 
-The 'model' axis (conv-channel tensor parallelism, the JAX package's
-`shard_params_for_tp`) has its only users in the training apps; it waits
-for them (ROADMAP.md Queue 1 item 12) and `make_mesh(model > 1)` refuses.
+The training apps' `--data-parallel` runs one rank per device over this
+axis too (training/state.py). The 'model' axis (conv-channel tensor
+parallelism, the JAX package's `shard_params_for_tp`) is not ported
+(ROADMAP.md Queue 1 item 12b): `make_mesh(model > 1)` refuses.
 """
 
 from __future__ import annotations
@@ -74,6 +75,20 @@ class Mesh(NamedTuple):
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts).to(t.device)
 
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's `t` (the same shape on each), on `t`'s
+        device; `t` itself is left as it was."""
+        buf = t.detach().to(self._wire, copy=True).contiguous()
+        dist.all_reduce(buf, group=self.group)
+        return buf.to(t.device)
+
+    def all_reduce_autograd(self, t: torch.Tensor) -> torch.Tensor:
+        """`all_reduce` under autograd: the gradient of the sum with respect
+        to each rank's `t` is the sum of every rank's incoming gradient, so
+        that a loss each rank takes its share of backpropagates through the
+        global sum exactly."""
+        return _AllReduceSum.apply(t, self)
+
     def ring_shift(self, t: torch.Tensor, step: int) -> torch.Tensor:
         """The `t` of rank (rank - step) mod size: each rank sends its `t` to
         rank + step and receives from rank - step, as one batch of
@@ -91,6 +106,17 @@ class Mesh(NamedTuple):
         return out.to(t.device)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad), None
+
+
 def make_mesh(data: int = -1, model: int = 1,
               device: torch.device | str | None = None) -> Mesh:
     """The 'data' mesh over the default process group: data = -1 takes
@@ -101,8 +127,8 @@ def make_mesh(data: int = -1, model: int = 1,
     is no card raises RuntimeError; nothing falls back to the CPU."""
     if model != 1:
         raise NotImplementedError(
-            "a 'model' axis (conv-channel tensor parallelism) is not ported: its users are the "
-            "training apps (ROADMAP.md Queue 1 item 12)")
+            "a 'model' axis (conv-channel tensor parallelism, the JAX package's "
+            "parallel/mesh.py shard_params_for_tp) is not ported (ROADMAP.md Queue 1 item 12b)")
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed() first")
     group = dist.group.WORLD

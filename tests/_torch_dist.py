@@ -7,7 +7,7 @@ modules that compare with the JAX package run the JAX side themselves.
 
 `spawn` starts the ranks with a free port, one intra-op thread each, and a
 time limit; `sharded_clip` and `MaxTrackNet` are the inputs both sides
-build."""
+build, `train_case` the data-parallel train steps' models and batches."""
 
 import json
 import os
@@ -177,7 +177,109 @@ def _ball(mesh, out: Path) -> None:
         (out / f"ball_{n}_{stride}.json").write_text(json.dumps([b.serialize() for b in balls]))
 
 
-CASES = {"sharded": _sharded, "fused": _fused, "runner": _runner, "ball": _ball}
+#: The data-parallel train steps' cases: a global batch of TRAIN_BATCH
+#: split over the ranks.
+TRAIN_BATCH = 4
+TRAIN_FAMILIES = ("yolo_det", "yolo_pose", "tracknet", "court_masked", "inpaint")
+
+
+def train_case(name: str):
+    """(a model with seeded LeCun weights, the global batch as numpy arrays,
+    the port's train step maker taking the mesh) of one family."""
+    from padel_analytics_tpu_torch.models.layers import lecun_normal_
+    from padel_analytics_tpu_torch.models.resnet import ResNet50Regressor
+    from padel_analytics_tpu_torch.models.tracknet import InpaintNet, make_tracknet
+    from padel_analytics_tpu_torch.models.yolov8 import YOLOv8
+    from padel_analytics_tpu_torch.training import (
+        make_court_train_step,
+        make_inpaintnet_train_step,
+        make_tracknet_train_step,
+        make_yolo_train_step,
+    )
+
+    rng = np.random.default_rng(len(name))
+    b = TRAIN_BATCH
+    if name.startswith("yolo"):
+        nk = 3 if name == "yolo_pose" else 0
+        model = YOLOv8("n", 1, nk)
+        xy = rng.uniform(2, 30, (b, 4, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(14, 32, (b, 4, 2))], -1)
+        mask = np.zeros((b, 4), bool)
+        mask[:, :2] = True
+        mask[1, 2] = True  # the ranks' shards hold different gt counts
+        batch = [rng.uniform(0, 1, (b, 64, 64, 3)), np.zeros((b, 4), np.int32), boxes]
+        if nk:
+            k = xy[:, :, None] + rng.uniform(0, 14, (b, 4, nk, 2))
+            batch.append(np.concatenate([k, (rng.uniform(0, 1, (b, 4, nk, 1)) < 0.7) * 2.0], -1))
+        batch.append(mask)
+        step = lambda mesh: make_yolo_train_step(pose=bool(nk), mesh=mesh)  # noqa: E731
+    elif name == "tracknet":
+        model, in_dim = make_tracknet(4, "concat")
+        c = rng.integers(1, 30, (b, 4, 2)).astype(np.float32)
+        from padel_analytics_tpu_torch.training import gaussian_heatmap_labels
+
+        labels = gaussian_heatmap_labels(torch.from_numpy(c), 16, 32).permute(0, 2, 3, 1)
+        batch = [rng.uniform(0, 1, (b, 16, 32, in_dim)), labels.numpy()]
+        step = make_tracknet_train_step
+    elif name == "court_masked":
+        model = ResNet50Regressor(6, (1, 1, 1, 1))
+        mask = (rng.uniform(0, 1, (b, 3)) < 0.6).astype(np.float32)
+        batch = [rng.normal(0, 1, (b, 64, 64, 3)), rng.uniform(0, 1, (b, 6)), mask]
+        step = make_court_train_step
+    else:
+        model = InpaintNet()
+        mask = (rng.uniform(0, 1, (b, 16, 1)) < 0.3).astype(np.float32)
+        batch = [rng.uniform(0, 1, (b, 16, 2)) * (1 - mask), mask, rng.uniform(0, 1, (b, 16, 2))]
+        step = make_inpaintnet_train_step
+    lecun_normal_(model, torch.Generator().manual_seed(len(name)))
+    batch = [a.astype(np.float32) if a.dtype == np.float64 else a for a in batch]
+    return model, batch, step
+
+
+def train_step_result(name: str, mesh=None, rows: slice = slice(None), device="cpu") -> dict:
+    """One Adam step (lr 1e-3) of `name` on `rows` of its global batch, on
+    `device`: {'loss', 'grad.<param>', 'param.<param>', 'buffer.<name>'} as
+    numpy."""
+    from padel_analytics_tpu_torch.training import init_train_state
+
+    model, batch, step = train_case(name)
+    state, loss = step(mesh)(init_train_state(model.to(device), 1e-3), *(
+        torch.from_numpy(np.ascontiguousarray(a[rows])).to(device) for a in batch))
+    out = {"loss": np.asarray(float(loss))}
+    for k, p in state.model.named_parameters():
+        out[f"grad.{k}"] = p.grad.cpu().numpy()
+        out[f"param.{k}"] = p.detach().cpu().numpy()
+    for k, v in state.model.named_buffers():
+        out[f"buffer.{k}"] = v.cpu().numpy()
+    return out
+
+
+def train_yolo_argv(data: Path, out: Path) -> list[str]:
+    """apps.train_yolo's arguments on the dataset under `data`: one epoch of
+    one global batch of 4 at 64 x 64."""
+    return ["--images", str(data / "images"), "--labels", str(data / "labels"), "--imgsz", "64",
+            "--epochs", "1", "--batch", "4", "--max-gt", "4", "--device", "cpu",
+            "--out", str(out)]
+
+
+def _train(mesh, out: Path) -> None:
+    """Each family's step on this rank's shard; then apps.train_yolo with
+    --data-parallel over the group on the dataset the parent wrote beside
+    the ranks' directories (rank 0 writes det.pt)."""
+    from padel_analytics_tpu_torch.apps import train_yolo
+
+    per = TRAIN_BATCH // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    for name in TRAIN_FAMILIES:
+        np.savez(out / f"{name}.npz", **train_step_result(name, mesh, rows))
+    train_yolo.main(train_yolo_argv(out.parent / "data", out / "det.pt")
+                    + ["--data-parallel", str(mesh.size)])
+
+
+CASES = {"sharded": _sharded, "fused": _fused, "runner": _runner, "ball": _ball,
+         "train": _train}
+#: The cases that train: autograd on (the others run under inference_mode).
+TRAINING = {"train"}
 
 
 def main(case: str, rank: int, world: int, port: int, out: str) -> None:
@@ -186,8 +288,11 @@ def main(case: str, rank: int, world: int, port: int, out: str) -> None:
                      init_method=f"tcp://127.0.0.1:{port}")
     try:
         mesh = make_mesh(data=world, device="cpu")
-        with torch.inference_mode():
+        if case in TRAINING:
             CASES[case](mesh, Path(out))
+        else:
+            with torch.inference_mode():
+                CASES[case](mesh, Path(out))
     finally:
         torch.distributed.destroy_process_group()
 

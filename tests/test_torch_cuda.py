@@ -5,7 +5,9 @@ against the per-tracker paths and its CPU run (decisive fakes), the fast
 configuration ('derived' ingest, nonoverlap ball stride), the model court
 and InpaintNet included; the multi-device path (an NCCL group of one rank:
 the sharded window inference, run_mesh, BallTracker(mesh=...)) and the
-association scan on the card against their single-device and CPU results.
+association scan on the card against their single-device and CPU results;
+the train steps on the card against the CPU and through the mesh, and
+apps/evaluate through K1.
 
 These tests need an NVIDIA GPU with nvcc and skip elsewhere. They import
 neither JAX nor the test suite's conftest, so on the card they run as
@@ -516,3 +518,63 @@ def test_association_scan_on_card_equals_cpu(dev, seed):
     assert torch.equal(got.cpu(), want)
     for a, b in zip(state, want_state):
         assert torch.equal(a.cpu(), b)
+
+
+def _grad_rel_l2(got: dict, want: dict) -> float:
+    keys = [k for k in want if k.startswith("grad.")]
+    num = sum(float(np.sum((got[k] - want[k]) ** 2)) for k in keys)
+    return (num / sum(float(np.sum(want[k] ** 2)) for k in keys)) ** 0.5
+
+
+@pytest.mark.parametrize("name", ["tracknet", "court_masked", "inpaint"])
+def test_train_step_on_card_equals_cpu(dev, name):
+    """One Adam step of the small families (tests/_torch_dist.py) on the card
+    against the same step on the CPU, fp32 with TF32 off: the loss within
+    1e-4 (relative), the gradient within 2e-2 (relative L2; an fp32 step of
+    a random-weight network is ill-conditioned, tests/_torch_train.py).
+    YOLO's assignment can tie within rounding on such small random models:
+    chip_smoke.py phase 17 holds its card step against the CPU's on fixed
+    targets."""
+    got = td.train_step_result(name, device=dev)
+    want = td.train_step_result(name)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4 * abs(float(want["loss"]))
+    assert _grad_rel_l2(got, want) <= 2e-2
+
+
+def test_train_step_through_nccl_mesh_equals_plain(nccl_mesh):
+    """The mesh path on the card (an NCCL group of one rank: the BatchNorm
+    statistics, normalizers, gradients and loss all-reduced) against the
+    no-mesh step: the loss within 1e-5, the gradient within 1e-3 (cuDNN's
+    backward sums in a nondeterministic order)."""
+    got = td.train_step_result("yolo_det", nccl_mesh, device=nccl_mesh.device)
+    want = td.train_step_result("yolo_det", device=nccl_mesh.device)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    assert _grad_rel_l2(got, want) <= 1e-3
+
+
+def test_evaluate_on_card_runs_k1(dev, tmp_path, capsys):
+    """apps.evaluate on the card: YOLOv8 in eval mode through K1, its one
+    JSON line."""
+    import json
+
+    from PIL import Image
+
+    from padel_analytics_tpu_torch.apps import evaluate
+    from padel_analytics_tpu_torch.training.checkpoint import save_yolov8
+
+    (tmp_path / "images").mkdir()
+    (tmp_path / "labels").mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        Image.fromarray(rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)).save(
+            tmp_path / "images" / f"im{i}.png")
+        (tmp_path / "labels" / f"im{i}.txt").write_text("0 0.5 0.5 0.4 0.6\n")
+    model = lecun_normal_(YOLOv8("n", 1), torch.Generator().manual_seed(0))
+    save_yolov8(tmp_path / "det.pt", model)
+    before = conv3x3.launches
+    assert evaluate.main(["--images", str(tmp_path / "images"), "--labels",
+                          str(tmp_path / "labels"), "--weights", str(tmp_path / "det.pt"),
+                          "--imgsz", "64", "--conf", "0.0"]) == 0
+    assert conv3x3.launches > before
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["images"] == 3
