@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port's ball, players, pose, fused, collect,
-model-court, multi-device and training paths and its CLI on one NVIDIA GPU.
+model-court, multi-device and training paths, its CLI, its weights formats
+and its validation app on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
@@ -157,7 +158,27 @@ is printed):
    printed for random and trained weights, the trained one lower; then
    apps.train_yolo (YOLOv8m) on 16 synthetic scenes and apps.evaluate on
    its checkpoint through K1 (the kernels line's 'evaluate'), its JSON line
-   printed.
+   printed;
+18. weights and validation: (a) full-width seeded weights written in the
+   reference's formats by training/checkpoint.py (YOLOv8m detect and
+   YOLOv8m-pose with 13 keypoints, cls heads calibrated; TrackNet with its
+   param_dict; InpaintNet; ResNet-50 under torchvision names), each
+   converted by apps.convert_weights to the JAX package's .msgpack and read
+   back through core/checkpoint.py: every tensor bit-equal to the .pt's,
+   the read ms of each format printed; (b) the main path,
+   TrackingRunner(fused=True, render=False, collect_data=True) at the
+   reference plan with InpaintNet on the ball, on a 48-frame 1920x1080
+   rally, once with the trackers loaded from the .pt files and once from
+   the .msgpack files: the caches and data.csv byte-equal, the launch
+   counters zeroed before and read after the .msgpack pass (the kernels
+   line's 'validate'), frames/s of each; (c) apps.validate_weights (its
+   main, with the clip in memory) on the .pt files against reference caches
+   from the per-tracker paths (batch = the fused chunk, on the frames the
+   i420 ingest delivers): within_1px_verdict true, max_px_overall printed;
+   with --fast-path, the fast plan's max px against the reference plan per
+   tracker (random weights); (d) compare_predictions over (b)'s two runs
+   (0 px), and BallVelocityEstimator and detect_hits over (b)'s results:
+   one estimate's m/s, the hit count and their host ms.
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
@@ -177,6 +198,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import hashlib
 import io
 import json
 import math
@@ -210,7 +232,7 @@ from padel_analytics_tpu_torch.ops.association import ByteTrack
 from padel_analytics_tpu_torch.ops.association_scan import associate_chunk, init_state
 from padel_analytics_tpu_torch.ops._fp32 import no_tf32
 from padel_analytics_tpu_torch.ops.area import resize_area, resize_area_planes
-from padel_analytics_tpu_torch.ops.color import planes_to_i420, rgb_to_i420
+from padel_analytics_tpu_torch.ops.color import i420_to_rgb, planes_to_i420, rgb_to_i420
 from padel_analytics_tpu_torch.ops.polygon import PolygonZone
 from padel_analytics_tpu_torch.trackers import (
     BallTracker,
@@ -2694,6 +2716,277 @@ def phase_train_serve(smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- phase 18: weights and validation
+
+#: The weights-and-validation rally (1920x1080 frames, four player figures).
+VALIDATE_FRAMES = 48
+#: validate_weights' court keypoints JSON: COURT_KEYPOINTS with its first two
+#: points on COURT_POLYGON's near corners, so that the polygon the app builds
+#: (keypoints 0, 1, -1, -2) is the players' gate of the other phases.
+VALIDATE_KEYPOINTS = [(200, 1100), (1720, 1100), *COURT_KEYPOINTS[2:]]
+#: (name, the convert_weights kind and flags) of each family written in the
+#: reference's format and converted to the JAX package's .msgpack.
+WEIGHT_FAMILIES = {
+    "players": ["yolo", "--variant", "m"],
+    "pose": ["yolo", "--variant", "m", "--keypoints", "13"],
+    "tracknet": ["tracknet"],
+    "inpaintnet": ["inpaintnet"],
+    "court_resnet": ["resnet"],
+}
+
+
+def _pt_state_dict(name: str, path: Path) -> dict:
+    """The port's state_dict of a reference-format .pt, through the loaders
+    its trackers use."""
+    from padel_analytics_tpu_torch.models.convert import (
+        convert_inpaintnet_checkpoint,
+        convert_tracknet_checkpoint,
+        load_torch_checkpoint,
+    )
+    from padel_analytics_tpu_torch.trackers.court_keypoints import _load_resnet
+    from padel_analytics_tpu_torch.trackers.players import _load_yolo
+
+    if name in ("players", "pose"):
+        return _load_yolo(str(path))
+    if name == "court_resnet":
+        return _load_resnet(str(path))
+    convert = convert_tracknet_checkpoint if name == "tracknet" else convert_inpaintnet_checkpoint
+    return convert(load_torch_checkpoint(str(path)))[0]
+
+
+def write_weights(root: Path, frames) -> dict:
+    """18 (a): full-width seeded weights in the reference's formats under
+    root/pt (YOLOv8m detect and YOLOv8m-pose with 13 keypoints, their cls
+    heads calibrated on `frames`; TrackNet with its param_dict; InpaintNet;
+    ResNet-50 under torchvision names; training/checkpoint.py's save_*),
+    each converted by apps.convert_weights to root/msgpack and read back:
+    every tensor bit-equal to the .pt's. Returns {name: (pt, msgpack)} and
+    prints the read ms of each format."""
+    from padel_analytics_tpu_torch.apps import convert_weights
+    from padel_analytics_tpu_torch.models.convert import load_flax_state_dict
+    from padel_analytics_tpu_torch.training import checkpoint as tckpt
+
+    (root / "pt").mkdir()
+    (root / "msgpack").mkdir()
+    players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
+                            config=PlayersTrackerConfig())
+    pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig())
+    calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in (players, pose)}
+    models = {
+        "players": (tckpt.save_yolov8, players.engine.model),
+        "pose": (tckpt.save_yolov8, pose.engine.model),
+        "tracknet": (lambda p, m: tckpt.save_tracknet(p, m, 8, "concat"),
+                     BallTracker(None, config=BallTrackerConfig()).tracknet.model),
+        "inpaintnet": (tckpt.save_inpaintnet,
+                       lecun_normal_(InpaintNet(), torch.Generator().manual_seed(23))),
+        "court_resnet": (tckpt.save_resnet, lecun_normal_(
+            ResNet50Regressor(), torch.Generator().manual_seed(0))),
+    }
+    paths, reads = {}, {}
+    for name, (save, model) in models.items():
+        pt, msg = root / "pt" / f"{name}.pt", root / "msgpack" / f"{name}.msgpack"
+        save(pt, model)
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(convert_weights.main([WEIGHT_FAMILIES[name][0], str(pt), str(msg),
+                                        *WEIGHT_FAMILIES[name][1:]]) == 0,
+                  f"convert_weights {name}")
+        t0 = time.perf_counter()
+        want = _pt_state_dict(name, pt)
+        pt_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = load_flax_state_dict(msg)
+        msg_ms = (time.perf_counter() - t0) * 1e3
+        keys = {k for k in want if not k.endswith("num_batches_tracked")}
+        check(keys == {k for k in got if not k.endswith("num_batches_tracked")},
+              f"{name}: the .msgpack's names differ from the .pt's")
+        bad = [k for k in keys if not torch.equal(got[k], want[k].float())]
+        check(not bad, f"{name}: .msgpack tensors differ from the .pt's: {bad[:5]}")
+        paths[name] = (pt, msg)
+        reads[name] = {"pt_ms": round(pt_ms, 1), "msgpack_ms": round(msg_ms, 1),
+                       "msgpack_MB": round(msg.stat().st_size / 2**20, 1), "tensors": len(keys)}
+    print(f"weights (a): five families written in the reference's formats, converted by "
+          f"apps.convert_weights, read back bit-equal; read ms by format {json.dumps(reads)}; "
+          f"calibration {calib}")
+    return paths
+
+
+def _validate_trackers(paths: dict, which: int, cache_dir: Path, batch: int = 8) -> list:
+    """The reference plan's four trackers with the written weights (which:
+    0 the .pt files, 1 the .msgpack files), caching under cache_dir with
+    validate_weights' reference-cache names."""
+    from padel_analytics_tpu_torch.apps.validate_weights import REF_CACHE_NAMES
+
+    def weights(name):
+        return str(paths[name][which])
+
+    save = {k: cache_dir / v for k, v in REF_CACHE_NAMES.items()}
+    players = PlayerTracker(weights("players"), PolygonZone(COURT_POLYGON, (1920, 1080)),
+                            batch_size=batch, save_path=save["players"])
+    pose = PlayerKeypointsTracker(weights("pose"), batch_size=batch,
+                                  save_path=save["players_keypoints"])
+    ball = BallTracker(weights("tracknet"), weights("inpaintnet"),
+                       config=BallTrackerConfig(batch_size=batch), save_path=save["ball"])
+    return [players, pose, ball, fixed_court(save_path=save["keypoints"])]
+
+
+def phase_weights_validate(smi: str) -> dict:
+    """Phase 18: (a) the weights in the reference's formats and the JAX
+    package's .msgpack; (b) the main path from each, caches and data.csv
+    byte-equal, K1 and K2 launched; (c) apps.validate_weights against the
+    port's per-tracker caches; (d) compare_predictions over (b) and the
+    ball's velocity and hits. Returns (b)'s .msgpack launch counts."""
+    from padel_analytics_tpu_torch.analytics.velocity_estimator import (
+        BallVelocityEstimator,
+        ImpactType,
+    )
+    from padel_analytics_tpu_torch.apps import compare_predictions, validate_weights
+    from padel_analytics_tpu_torch.apps.validate_weights import REF_CACHE_NAMES
+    from padel_analytics_tpu_torch.trackers.velocity_in_time import detect_hits
+
+    n = VALIDATE_FRAMES
+    frames = synthetic_players(n, seed=31)
+    clip = MemoryClip(frames, fps=30.0)
+    chunks = -(-(n + 7) // FUSED_CHUNK)
+    want_k1 = 110 * -(-n // FUSED_CHUNK) + 17 * chunks
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = write_weights(tmp, frames)
+
+        # (b) the main path from the .pt files and from the .msgpack files,
+        # passes in turns (pt, msgpack, msgpack, pt); the launch counters
+        # zeroed before and read after each.
+        runners, runs = {}, {}
+        for which, fmt in enumerate(("pt", "msgpack")):
+            cache = tmp / f"run_{fmt}"
+            cache.mkdir()
+            runners[fmt] = (TrackingRunner(_validate_trackers(paths, which, cache), clip,
+                                           tmp / "unused.mp4", fused=True,
+                                           fused_chunk=FUSED_CHUNK, render=False,
+                                           collect_data=True), cache)
+        for fmt in ("pt", "msgpack", "msgpack", "pt"):
+            runner, cache = runners[fmt]
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            seconds, csv = _collect_run(runner, cache / "data.csv")
+            counts = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            check("fused_inference" in runner.stage_times, f"weights (b) {fmt}: not fused")
+            check(counts == {"conv3x3_bn_act": want_k1, "heatmap_cc": chunks},
+                  f"weights (b) {fmt}: launches {counts}, want K1 {want_k1}, K2 {chunks}")
+            check(check_csv(cache / "data.csv", n) > 0, f"weights (b) {fmt}: no player in csv")
+            files = {k: (cache / v).read_bytes() for k, v in REF_CACHE_NAMES.items()}
+            if fmt in runs:
+                check(files == runs[fmt]["files"] and csv == runs[fmt]["csv"],
+                      f"weights (b) {fmt}: a second pass wrote other files")
+                runs[fmt]["fps"].append(n / seconds)
+            else:
+                runs[fmt] = {"fps": [n / seconds], "csv": csv, "files": files,
+                             "counts": counts, "runner": runner}
+        for kind in REF_CACHE_NAMES:
+            check(runs["pt"]["files"][kind] == runs["msgpack"]["files"][kind],
+                  f"weights (b): the {kind} cache from .msgpack differs from the .pt run's")
+        check(runs["pt"]["csv"] == runs["msgpack"]["csv"],
+              "weights (b): data.csv from .msgpack differs from the .pt run's")
+        found = {k: sum(map(len, json.loads(v))) if k != "ball" else
+                 sum(b["visibility"] for b in json.loads(v))
+                 for k, v in runs["pt"]["files"].items()}
+        print(f"weights (b) ({smi}): the main path (fused i420 + collect, reference plan, "
+              f"InpaintNet on the ball) on a {n}-frame 1920x1080 rally, passes in turns: from "
+              f".pt {' and '.join(f'{v:.1f}' for v in runs['pt']['fps'])} frames/s, from "
+              f".msgpack {' and '.join(f'{v:.1f}' for v in runs['msgpack']['fps'])} frames/s; "
+              f"caches and data.csv byte-equal across all four passes; launches a pass "
+              f"{runs['msgpack']['counts']}; found {found}")
+
+        # (d) compare_predictions over (b)'s two runs, the ball's velocity
+        # and hits over its results.
+        worst = {}
+        for kind in REF_CACHE_NAMES:
+            stats = compare_predictions.COMPARATORS[kind](
+                json.loads(runs["pt"]["files"][kind]), json.loads(runs["msgpack"]["files"][kind]))
+            worst[kind] = stats.get("max_px", stats.get("mean_center_px"))
+            check(worst[kind] in (0.0, None, math.inf) and stats["frames"] == n,
+                  f"weights (d): {kind} {stats}")
+        results = {k: t.results.predictions for k, t in runs["msgpack"]["runner"].trackers.items()}
+        estimator = BallVelocityEstimator(30.0, results["players_tracker"],
+                                          results["ball_tracker"], results["keypoints_tracker"])
+        visible = [i for i, b in enumerate(results["ball_tracker"]) if b.visibility]
+        t0, t1 = (visible[0], visible[-1]) if len(visible) >= 2 else (0, n - 1)
+        t_est = []
+        for _ in range(20):
+            t = time.perf_counter()
+            data, velocity = estimator.estimate_velocity(t0, t1, ImpactType.RACKET, get_Vz=True)
+            t_est.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        hits = detect_hits(results["ball_tracker"])
+        hits_ms = (time.perf_counter() - t) * 1e3
+        check(math.isfinite(velocity.norm), f"weights (d): velocity {velocity}")
+        print(f"weights (d): compare_predictions .pt run vs .msgpack run, max px (players: "
+              f"mean centre px) {worst}; BallVelocityEstimator frames {t0} -> {t1} "
+              f"({len(visible)} visible balls, random weights): {velocity.norm:.3f} m/s "
+              f"({velocity}), {float(np.median(t_est)):.3f} ms on the host (median of 20); "
+              f"detect_hits over {n} frames: {len(hits)} hits {hits}, {hits_ms:.3f} ms")
+
+        # (c) apps.validate_weights on the same clip and the .pt files. Its
+        # reference caches: the per-tracker paths (every batch = the fused
+        # chunk) on the frames the fused i420 ingest delivers (the I420
+        # round trip done on the host).
+        ref = tmp / "ref"
+        ref.mkdir()
+        rt = [i420_to_rgb(torch.from_numpy(rgb_to_i420(f)), f.shape[0], dtype=torch.uint8).numpy()
+              for f in frames]
+        kp = np.array(VALIDATE_KEYPOINTS, float)
+        check(np.array_equal(np.stack([kp[0], kp[1], kp[-1], kp[-2]]), COURT_POLYGON),
+              "weights (c): the keypoints' polygon is not the players' gate")
+        trackers = _validate_trackers(paths, 0, ref, batch=FUSED_CHUNK)
+        # The fused run takes the ball's median from the source frames
+        # (FusedPipeline._gather_setup) and TrackNet's frames from the I420
+        # decode: so does the reference, its median computed on the source
+        # head and kept for the round-tripped clip (the first-frame
+        # fingerprint it is keyed by set to that clip's).
+        trackers[2].ensure_median_for_clip(frames[: trackers[2].median_max_sample_num])
+        trackers[2]._median_fp = hashlib.sha1(rt[0].tobytes()).hexdigest()
+        trackers[3] = KeypointsTracker(fixed_keypoints_detection=Keypoints(
+            [Keypoint(id=i, xy=(float(x), float(y))) for i, (x, y) in enumerate(kp)]),
+            save_path=ref / REF_CACHE_NAMES["keypoints"])
+        per_tracker = TrackingRunner(trackers,
+                                     MemoryClip(rt, fps=30.0), tmp / "unused.mp4",
+                                     fused=False, render=False, collect_data=False)
+        per_tracker.run()
+        check("fused_inference" not in per_tracker.stage_times, "weights (c): ref not per-tracker")
+        (tmp / "kps.json").write_text(json.dumps(VALIDATE_KEYPOINTS))
+        wdir = tmp / "wdir"
+        wdir.mkdir()
+        for name in ("players", "pose", "tracknet", "inpaintnet"):
+            (wdir / validate_weights.WEIGHT_NAMES[name]).symlink_to(paths[name][0])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = validate_weights.main(
+                ["--weights-dir", str(wdir), "--cache-dir", str(ref), "--video", "memory",
+                 "--keypoints", str(tmp / "kps.json"), "--out", str(tmp / "report.json"),
+                 "--fast-path"], video=clip)
+        wall_s = time.perf_counter() - t0
+        report = json.loads((tmp / "report.json").read_text())
+        check(rc == 0, f"validate_weights exited {rc}")
+        check(all(report["weights"][k] for k in ("players", "pose", "tracknet", "inpaintnet")),
+              f"validate: weights {report['weights']}")
+        per = {k: report[k].get("max_px", report[k].get("mean_center_px"))
+               for k in REF_CACHE_NAMES}
+        check(report["within_1px_verdict"] is True,
+              f"validate: within_1px_verdict {report['within_1px_verdict']}, max px {per}, "
+              f"report {json.dumps(report)[:2000]}")
+        fast = report["fast_path"]
+        fast_px = {k: fast[k].get("max_px", fast[k].get("mean_center_px")) for k in REF_CACHE_NAMES}
+        print(f"validate (c) ({smi}): apps.validate_weights on the {n}-frame rally (4 .pt "
+              f"weights, fixed court) against the per-tracker paths' caches: "
+              f"within_1px_verdict {report['within_1px_verdict']}, max_px_overall "
+              f"{report['max_px_overall']}, per tracker (players: mean centre px) {per}; "
+              f"--fast-path (derived wire {fast['config']['wire_long_side']}, pose@"
+              f"{fast['config']['pose_image_size']}) against this run's reference plan, random "
+              f"weights: max_px_vs_parity {fast['max_px_vs_parity']}, per tracker {fast_px}, "
+              f"within_bound_verdict (5 px) {fast['within_bound_verdict']}; wall {wall_s:.1f} s "
+              "(both plans, models built)")
+    return runs["msgpack"]["counts"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -2743,6 +3036,7 @@ def main() -> None:
         torch.distributed.destroy_process_group()
     phase_train(dev, smi)
     by_path.update(phase_train_serve(smi))
+    by_path["validate"] = phase_weights_validate(smi)
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

@@ -1,4 +1,5 @@
-"""Court projection and the per-player kinematics table (data.csv)."""
+"""Court projection, the per-player kinematics table (data.csv) and the
+ball's velocity between two frames (velocity_estimator)."""
 
 from .data_analytics import DataAnalytics, DataPoint, PlayerPosition
 from .projected_court import ProjectedCourt, ProjectedCourtKeypoints, Rectangle

@@ -45,14 +45,16 @@ from ..trackers import (
 from ..utils.video import MemoryClip, VideoInfo, frame_generator
 
 
+def load_config_file(path: str | Path) -> PipelineConfig:
+    """A PipelineConfig from a reference-style flat config .py file."""
+    spec = importlib.util.spec_from_file_location("user_config", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return PipelineConfig.from_module(module)
+
+
 def _load_config(args) -> PipelineConfig:
-    if args.config:
-        spec = importlib.util.spec_from_file_location("user_config", args.config)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        cfg = PipelineConfig.from_module(module)
-    else:
-        cfg = PipelineConfig()
+    cfg = load_config_file(args.config) if args.config else PipelineConfig()
     if args.input_video:
         cfg.input_video_path = args.input_video
     if args.output_video:

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     from ..models.yolov8 import YOLOv8
     from ..ops.nms import batched_nms
     from ..trackers._engine import Engine
-    from ..trackers.players import _load_yolo_pt, _person_scores
+    from ..trackers.players import _load_yolo, _person_scores
     from ..training.data import load_image_bicubic01
     from ..training.evaluate import detection_map, greedy_match, oks
     from ._train import resolve_device
@@ -57,7 +57,7 @@ def main(argv=None) -> int:
     pose = args.keypoints > 0
     hw = (args.imgsz, args.imgsz)
     model = Engine(YOLOv8(args.variant, args.classes, args.keypoints), device,
-                   _load_yolo_pt(args.weights)).model
+                   _load_yolo(args.weights)).model
 
     paths, labels, boxes_n, kpts_n, mask = load_dataset(args.images, args.labels, args.max_gt)
     if pose and (kpts_n is None or kpts_n.shape[2] != args.keypoints):

@@ -50,7 +50,8 @@ def main(argv=None) -> int:
     parser.add_argument("--epochs", type=int, default=5)
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
-    parser.add_argument("--out", default="court.pt")
+    parser.add_argument("--out", default="court.pt",
+                        help="a .pt file, or .msgpack for the JAX package's Flax format")
     parser.add_argument("--resume", default=None)
     # test-sized stages; the default is the real ResNet-50
     parser.add_argument("--stage-sizes", default="3,4,6,3")

@@ -51,7 +51,8 @@ def main(argv=None) -> int:
     parser.add_argument("--img-wh", type=int, nargs=2, default=None,
                         help="source resolution (w h) for coordinate normalization; "
                         "inferred from frame images when omitted")
-    parser.add_argument("--out", default="inpaintnet.pt")
+    parser.add_argument("--out", default="inpaintnet.pt",
+                        help="a .pt file, or .msgpack for the JAX package's Flax format")
     parser.add_argument("--resume", default=None)
     from ._train import add_device_args
 

@@ -34,7 +34,8 @@ def main(argv=None) -> int:
     parser.add_argument("--height", type=int, default=288)
     parser.add_argument("--width", type=int, default=512)
     parser.add_argument("--mixup", type=float, default=0.0)
-    parser.add_argument("--out", default="tracknet.pt")
+    parser.add_argument("--out", default="tracknet.pt",
+                        help="a .pt file, or .msgpack for the JAX package's Flax format")
     parser.add_argument("--resume", default=None)
     from ._train import add_device_args
 

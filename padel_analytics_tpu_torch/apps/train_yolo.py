@@ -76,7 +76,8 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--max-gt", type=int, default=16)
-    parser.add_argument("--out", default="yolo.pt")
+    parser.add_argument("--out", default="yolo.pt",
+                        help="a .pt file, or .msgpack for the JAX package's Flax format")
     parser.add_argument("--resume", default=None)
     from ._train import add_device_args
 

@@ -3,7 +3,9 @@
 Counterpart of ``padel_analytics_tpu/models/convert.py``, in the other
 direction where the source is the JAX package: `state_dict_from_flax` maps
 a ``{'params', 'batch_stats'}`` variable tree (as numpy arrays) onto a torch
-``state_dict``. The port's submodule names equal the Flax tree's (TrackNet,
+``state_dict``, and `flax_from_state_dict` maps it back (the .msgpack files
+that `load_flax_state_dict` reads and `save_flax` writes, with
+core/checkpoint.py). The port's submodule names equal the Flax tree's (TrackNet,
 YOLOv8 and InpaintNet alike; ResNet-50 keeps each conv and its BN under one
 ConvBN, so ``convN`` / ``bnN`` become ``convN.conv`` / ``convN.bn``), so the
 bridge inverts the layouts:
@@ -75,7 +77,7 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
                 np.ascontiguousarray(value.transpose(_KERNEL_AXES[value.ndim]), np.float32))
         elif leaf in ("scale", "bias"):
             name = "weight" if leaf == "scale" else "bias"
-            out[f"{module}.{name}"] = torch.from_numpy(np.asarray(value, np.float32))
+            out[f"{module}.{name}"] = torch.from_numpy(np.array(value, np.float32))
         else:
             raise ValueError(f"unhandled parameter {'/'.join(path)}")
     for path, value in _walk(variables.get("batch_stats", {})):
@@ -83,13 +85,96 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
             raise ValueError(f"unhandled batch stat {'/'.join(path)}")
-        out[f"{module}.{names[leaf]}"] = torch.from_numpy(np.asarray(value, np.float32))
+        out[f"{module}.{names[leaf]}"] = torch.from_numpy(np.array(value, np.float32))
         out.setdefault(f"{module}.num_batches_tracked", torch.tensor(0))
     return out
 
 
 #: The ball path's name for the bridge.
 tracknet_state_dict_from_flax = state_dict_from_flax
+
+#: Weight layout (torch) -> kernel layout (Flax): `_KERNEL_AXES` inverted.
+_WEIGHT_AXES = {n: tuple(np.argsort(axes)) for n, axes in _KERNEL_AXES.items()}
+
+
+def _flax_resnet_module(parts: list[str]) -> list[str]:
+    """A port ResNet50Regressor module path -> the Flax one (the inverse of
+    `_resnet_module`): ``convN.conv`` / ``convN.bn`` are ``convN`` / ``bnN``,
+    ``down_conv.conv`` / ``.bn`` are ``down_conv`` / ``down_bn``."""
+    if len(parts) >= 2 and parts[-1] in ("conv", "bn"):
+        *parent, mod, sub = parts
+        if mod == "down_conv":
+            return [*parent, "down_conv" if sub == "conv" else "down_bn"]
+        if mod.startswith("conv"):
+            return [*parent, mod if sub == "conv" else f"bn{mod[4:]}"]
+    return parts
+
+
+def _put(tree: dict, path: list[str], value: np.ndarray) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    if path[-1] in tree:
+        raise ValueError(f"two weights map to {'/'.join(path)}")
+    tree[path[-1]] = value
+
+
+def flax_from_state_dict(state_dict: Mapping[str, Any]) -> dict[str, dict]:
+    """A port state_dict (TrackNet, YOLOv8, InpaintNet, ResNet50Regressor)
+    -> the JAX package's ``{'params', 'batch_stats'}`` variable tree of the
+    same model, float32 numpy leaves: the inverse of
+    `state_dict_from_flax`. A weight of rank 4 / 3 / 2 is a kernel (Conv2d
+    OIHW -> HWIO, Conv1d OIK -> KIO, Linear OI -> IO), of rank 1 a
+    BatchNorm scale; running statistics go to ``batch_stats``;
+    ``num_batches_tracked`` (no Flax counterpart) is dropped. A model
+    without BatchNorm has no ``batch_stats``, as in Flax. Keys are sorted at
+    every level, as in the trees JAX builds."""
+    resnet = "fc.weight" in state_dict and "conv1.bn.weight" in state_dict
+    params: dict = {}
+    stats: dict = {}
+    for key, value in state_dict.items():
+        *module, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if resnet:
+            module = _flax_resnet_module(module)
+        arr = torch.as_tensor(value).detach().cpu().float().numpy()
+        if leaf == "weight" and arr.ndim in _WEIGHT_AXES:
+            _put(params, [*module, "kernel"],
+                 np.ascontiguousarray(arr.transpose(_WEIGHT_AXES[arr.ndim])))
+        elif leaf == "weight" and arr.ndim == 1:
+            _put(params, [*module, "scale"], arr.copy())
+        elif leaf == "bias":
+            _put(params, [*module, "bias"], arr.copy())
+        elif leaf in ("running_mean", "running_var"):
+            _put(stats, [*module, "mean" if leaf == "running_mean" else "var"], arr.copy())
+        else:
+            raise ValueError(f"unhandled weight {key} {tuple(arr.shape)}")
+    tree = {"params": params, "batch_stats": stats} if stats else {"params": params}
+    return _sorted(tree)
+
+
+def _sorted(tree):
+    """Keys sorted at every level, as JAX orders a dict it rebuilds (so the
+    file's bytes are the JAX package's for the same weights)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def load_flax_state_dict(path) -> dict[str, torch.Tensor]:
+    """A Flax .msgpack variable file (the JAX package's trackers and train
+    apps) -> the port's state_dict of the same model."""
+    from ..core.checkpoint import load_checkpoint
+
+    return state_dict_from_flax(load_checkpoint(path))
+
+
+def save_flax(path, model: torch.nn.Module) -> None:
+    """Write a port model's weights as the JAX package's .msgpack file (what
+    its `_engine.load_variables` reads for the same model)."""
+    from ..core.checkpoint import save_checkpoint
+
+    save_checkpoint(flax_from_state_dict(model.state_dict()), path)
 
 
 def convert_tracknet_checkpoint(ckpt: Mapping[str, Any]) -> tuple[dict, dict]:

@@ -46,6 +46,7 @@ from ..config import BallTrackerConfig
 from ..models.convert import (
     convert_inpaintnet_checkpoint,
     convert_tracknet_checkpoint,
+    load_flax_state_dict,
     load_torch_checkpoint,
 )
 from ..models.layers import lecun_normal_
@@ -63,6 +64,21 @@ from ._ballwindow import (
 from ._engine import Engine, pad_batch
 from .base import Tracker
 from .objects import Ball, TrackedObject
+
+
+def _check_tracknet_shapes(path: str, state_dict, model, seq_len: int, bg_mode: str) -> None:
+    """Raise where the weights are not the TrackNet of (seq_len, bg_mode):
+    the first conv's input channels and the last conv's outputs first (they
+    name the two), then every other shape."""
+    want = model.state_dict()
+    names = [k for k in want if k.endswith(".weight") and want[k].ndim == 4]
+    for key in (names[0], names[-1], *want):
+        if key in state_dict and tuple(state_dict[key].shape) != tuple(want[key].shape):
+            raise ValueError(
+                f"{path}: {key} has shape {tuple(state_dict[key].shape)}, the TrackNet of "
+                f"seq_len={seq_len}, bg_mode={bg_mode!r} wants {tuple(want[key].shape)} "
+                "(a .msgpack carries no param_dict: set BallTrackerConfig's seq_len and "
+                "bg_mode to the weights')")
 
 
 def generate_inpaint_mask(pred_dict: dict, th_h: float = 30) -> list:
@@ -156,12 +172,16 @@ class BallTracker(Tracker):
 
         self.tracknet_seq_len = self.TRAJECTORY_LENGTH
         state_dict = None
-        if tracking_model_path is not None:
-            if not str(tracking_model_path).endswith((".pt", ".pth")):
-                raise ValueError(f"unsupported TrackNet checkpoint {tracking_model_path!r}")
-            state_dict, param_dict = convert_tracknet_checkpoint(
-                load_torch_checkpoint(str(tracking_model_path))
-            )
+        path = None if tracking_model_path is None else str(tracking_model_path)
+        if path is not None and path.endswith(".msgpack"):
+            # A Flax tree carries no param_dict: seq_len and bg_mode are the
+            # config's, checked against the weights' shapes below.
+            state_dict = load_flax_state_dict(path)
+        elif path is not None:
+            if not path.endswith((".pt", ".pth")):
+                raise ValueError(f"unsupported TrackNet checkpoint {path!r} "
+                                 "(want .pt, .pth or .msgpack)")
+            state_dict, param_dict = convert_tracknet_checkpoint(load_torch_checkpoint(path))
             self.tracknet_seq_len = int(param_dict.get("seq_len", self.TRAJECTORY_LENGTH))
             self.bg_mode = param_dict.get("bg_mode", "concat")
             if self.tracknet_seq_len != self.TRAJECTORY_LENGTH:
@@ -174,6 +194,8 @@ class BallTracker(Tracker):
                                                     self.subpixel_up)
         if state_dict is None:
             lecun_normal_(model, torch.Generator().manual_seed(seed))
+        else:
+            _check_tracknet_shapes(path, state_dict, model, self.tracknet_seq_len, self.bg_mode)
         self.tracknet = Engine(model, self.device, state_dict)
 
         # InpaintNet, from a reference checkpoint (tensors and plain values
@@ -181,10 +203,14 @@ class BallTracker(Tracker):
         self.inpaintnet: Optional[Engine] = None
         self.inpaintnet_seq_len = 16
         if inpainting_model_path:
-            if not str(inpainting_model_path).endswith((".pt", ".pth")):
-                raise ValueError(f"unsupported InpaintNet checkpoint {inpainting_model_path!r}")
-            istate, iparams = convert_inpaintnet_checkpoint(
-                load_torch_checkpoint(str(inpainting_model_path)))
+            ipath = str(inpainting_model_path)
+            if ipath.endswith(".msgpack"):
+                istate, iparams = load_flax_state_dict(ipath), {}
+            elif ipath.endswith((".pt", ".pth")):
+                istate, iparams = convert_inpaintnet_checkpoint(load_torch_checkpoint(ipath))
+            else:
+                raise ValueError(f"unsupported InpaintNet checkpoint {ipath!r} "
+                                 "(want .pt, .pth or .msgpack)")
             self.inpaintnet_seq_len = int(iparams.get("seq_len", 16))
             self.inpaintnet = Engine(InpaintNet(), self.device, istate)
 

@@ -31,7 +31,11 @@ import numpy as np
 import torch
 
 from ..config import CourtKeypointsTrackerConfig
-from ..models.convert import convert_resnet50_state_dict, load_torch_checkpoint
+from ..models.convert import (
+    convert_resnet50_state_dict,
+    load_flax_state_dict,
+    load_torch_checkpoint,
+)
 from ..models.layers import lecun_normal_
 from ..models.resnet import ResNet50Regressor, imagenet_normalize
 from ..models.yolov8 import YOLOv8
@@ -41,7 +45,7 @@ from ..ops.resize import resize_plan
 from ._engine import Engine, pad_batch
 from .base import NoPredictFrames, NoPredictSample, Tracker
 from .objects import Keypoint, Keypoints, TrackedObject
-from .players import _load_yolo_pt
+from .players import _load_yolo
 
 # The reference's hard-coded yolo-keypoint-index -> court-keypoint-id remap.
 POINTS_MAPPER = {
@@ -98,10 +102,10 @@ class KeypointsTracker(Tracker):
         self.engine: Optional[Engine] = None
         if fixed_keypoints_detection is None:
             if model_type == "yolo":
-                state_dict = _load_yolo_pt(str(model_path)) if model_path else None
+                state_dict = _load_yolo(str(model_path)) if model_path else None
                 model = YOLOv8(model_variant, num_classes=1, num_keypoints=self.NUMBER_KEYPOINTS)
             else:
-                state_dict = _load_resnet_pt(str(model_path)) if model_path else None
+                state_dict = _load_resnet(str(model_path)) if model_path else None
                 model = ResNet50Regressor(num_outputs=self.NUMBER_KEYPOINTS * 2)
             if state_dict is None:
                 lecun_normal_(model, torch.Generator().manual_seed(seed))
@@ -233,9 +237,12 @@ class KeypointsTracker(Tracker):
         return predictions
 
 
-def _load_resnet_pt(path: str) -> dict[str, torch.Tensor]:
-    """A torchvision resnet50 state_dict (or a pickled module holding one,
-    which needs a full unpickle) -> the port's ResNet50Regressor state_dict."""
+def _load_resnet(path: str) -> dict[str, torch.Tensor]:
+    """A ResNet-50 court checkpoint -> the port's ResNet50Regressor
+    state_dict: a torchvision resnet50 state_dict (or a pickled module holding
+    one, which needs a full unpickle), or the JAX package's Flax .msgpack."""
+    if path.endswith(".msgpack"):
+        return load_flax_state_dict(path)
     state_dict = load_torch_checkpoint(path, allow_pickle=True)
     if hasattr(state_dict, "state_dict"):
         state_dict = state_dict.state_dict()

@@ -31,7 +31,7 @@ from ..ops.resize import resize_plan
 from ._engine import Engine
 from .base import Tracker
 from .objects import PlayerKeypoint, PlayerKeypoints, PlayersKeypoints, TrackedObject
-from .players import _load_yolo_pt
+from .players import _load_yolo
 
 NUM_KEYPOINTS = 13
 
@@ -76,7 +76,7 @@ class PlayerKeypointsTracker(Tracker):
         self.max_detections = max_detections
         self.compute_dtype = compute_dtype
 
-        state_dict = _load_yolo_pt(str(model_path)) if model_path is not None else None
+        state_dict = _load_yolo(str(model_path)) if model_path is not None else None
         model = YOLOv8(model_variant, num_classes=1, num_keypoints=NUM_KEYPOINTS)
         if state_dict is None:
             lecun_normal_(model, torch.Generator().manual_seed(seed))

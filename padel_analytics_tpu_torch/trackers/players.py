@@ -22,7 +22,11 @@ import numpy as np
 import torch
 
 from ..config import PlayersTrackerConfig
-from ..models.convert import load_torch_checkpoint, yolov8_state_dict_from_ultralytics
+from ..models.convert import (
+    load_flax_state_dict,
+    load_torch_checkpoint,
+    yolov8_state_dict_from_ultralytics,
+)
 from ..models.layers import lecun_normal_
 from ..models.yolov8 import YOLOv8
 from ..ops.association import ByteTrack
@@ -87,7 +91,7 @@ class PlayerTracker(Tracker):
         # any class count, read from its cls projection.
         state_dict = None
         if model_path is not None:
-            state_dict = _load_yolo_pt(str(model_path))
+            state_dict = _load_yolo(str(model_path))
             ckpt_nc = int(state_dict["cls_0.proj.weight"].shape[0])
             if num_classes is not None and num_classes != ckpt_nc:
                 raise ValueError(f"num_classes={num_classes} but checkpoint has {ckpt_nc}")
@@ -207,12 +211,14 @@ def _person_scores(cls_scores: torch.Tensor) -> torch.Tensor:
     return torch.where(cls_scores.argmax(dim=-1) == 0, s0, torch.zeros_like(s0))
 
 
-def _load_yolo_pt(path: str) -> dict[str, torch.Tensor]:
-    """An ultralytics YOLOv8 .pt (a pickled model, or a state_dict) -> the
-    port's YOLOv8 state_dict. The file is unpickled in full: ultralytics
-    checkpoints need it."""
+def _load_yolo(path: str) -> dict[str, torch.Tensor]:
+    """A YOLOv8 checkpoint -> the port's YOLOv8 state_dict: an ultralytics
+    .pt (a pickled model, or a state_dict; unpickled in full, as ultralytics
+    checkpoints need), or the JAX package's Flax .msgpack."""
+    if path.endswith(".msgpack"):
+        return load_flax_state_dict(path)
     if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"unsupported YOLOv8 checkpoint {path!r} (want .pt or .pth)")
+        raise ValueError(f"unsupported YOLOv8 checkpoint {path!r} (want .pt, .pth or .msgpack)")
     ckpt = load_torch_checkpoint(path, allow_pickle=True)
     model = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     state_dict = model.state_dict() if hasattr(model, "state_dict") else model

@@ -1,5 +1,5 @@
 """The train apps' checkpoints: `.pt` files in the formats the port's own
-loaders (and the reference's) read.
+loaders (and the reference's) read, or the JAX package's Flax `.msgpack`.
 
 - TrackNet: ``{'model': state_dict, 'param_dict': {'seq_len', 'bg_mode'}}``
   (the reference's format, `BallTracker(tracking_model_path=...)`);
@@ -11,8 +11,12 @@ loaders (and the reference's) read.
 - ResNet-50: a state_dict under torchvision's names, which the resnet
   court reads.
 
-`load_for_resume` reads each back, and the reference's own files. The JAX
-package's apps write Flax msgpack, which the port does not read.
+A path ending in ``.msgpack`` is the JAX package's format instead, for
+every family: the ``{'params', 'batch_stats'}`` tree its
+`_engine.load_variables` builds for the same model (`models/convert.py::
+flax_from_state_dict`, no param_dict), which its trackers and apps load.
+`load_for_resume` reads each back, the reference's own files and the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from ..models.convert import (
     _YOLO_LAYERS,
     convert_inpaintnet_checkpoint,
     convert_tracknet_checkpoint,
+    load_flax_state_dict,
     load_torch_checkpoint,
+    save_flax,
 )
 from ..models.yolov8 import REG_MAX
 
@@ -36,15 +42,15 @@ from ..models.yolov8 import REG_MAX
 YOLO_HEAD_INDEX = 22
 
 
-def _check_pt(path) -> str:
+def _check_path(path) -> str:
     path = str(path)
-    if path.endswith(".msgpack"):
-        raise ValueError(
-            f"{path}: a Flax msgpack checkpoint (the JAX package padel_analytics_tpu's format); "
-            "the port reads and writes .pt files")
-    if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"unsupported checkpoint {path!r} (want .pt or .pth)")
+    if not path.endswith((".pt", ".pth", ".msgpack")):
+        raise ValueError(f"unsupported checkpoint {path!r} (want .pt, .pth or .msgpack)")
     return path
+
+
+def _is_flax(path) -> bool:
+    return _check_path(path).endswith(".msgpack")
 
 
 def _cpu(state_dict) -> dict[str, torch.Tensor]:
@@ -52,7 +58,7 @@ def _cpu(state_dict) -> dict[str, torch.Tensor]:
 
 
 def _save(obj, path) -> None:
-    Path(_check_pt(path)).parent.mkdir(parents=True, exist_ok=True)
+    Path(_check_path(path)).parent.mkdir(parents=True, exist_ok=True)
     torch.save(obj, path)
 
 
@@ -120,21 +126,29 @@ def torchvision_resnet_key(key: str) -> str:
 
 
 def save_tracknet(path, model: nn.Module, seq_len: int, bg_mode: str = "concat") -> None:
+    if _is_flax(path):
+        return save_flax(path, model)
     _save({"model": _cpu(model.state_dict()),
            "param_dict": {"model_name": "TrackNet", "seq_len": seq_len, "bg_mode": bg_mode}},
           path)
 
 
 def save_inpaintnet(path, model: nn.Module, seq_len: int = 16) -> None:
+    if _is_flax(path):
+        return save_flax(path, model)
     _save({"model": inpaintnet_reference_names(_cpu(model.state_dict())),
            "param_dict": {"model_name": "InpaintNet", "seq_len": seq_len}}, path)
 
 
 def save_yolov8(path, model: nn.Module) -> None:
+    if _is_flax(path):
+        return save_flax(path, model)
     _save(yolov8_ultralytics_state_dict(_cpu(model.state_dict())), path)
 
 
 def save_resnet(path, model: nn.Module) -> None:
+    if _is_flax(path):
+        return save_flax(path, model)
     _save({torchvision_resnet_key(k): v for k, v in _cpu(model.state_dict()).items()}, path)
 
 
@@ -143,18 +157,21 @@ def save_resnet(path, model: nn.Module) -> None:
 
 def load_for_resume(family: str, path) -> dict[str, torch.Tensor]:
     """The port's state_dict of `family` ('tracknet', 'inpaintnet', 'yolo',
-    'resnet') from a file the train apps write, or the reference's own."""
-    path = _check_pt(path)
+    'resnet') from a file the train apps write, the reference's own, or the
+    JAX package's .msgpack."""
+    if family not in ("tracknet", "inpaintnet", "yolo", "resnet"):
+        raise ValueError(f"unknown model family {family!r}")
+    if _is_flax(path):
+        return load_flax_state_dict(path)
+    path = str(path)
     if family == "tracknet":
         return convert_tracknet_checkpoint(load_torch_checkpoint(path))[0]
     if family == "inpaintnet":
         return convert_inpaintnet_checkpoint(load_torch_checkpoint(path))[0]
     if family == "yolo":
-        from ..trackers.players import _load_yolo_pt
+        from ..trackers.players import _load_yolo
 
-        return _load_yolo_pt(path)
-    if family == "resnet":
-        from ..trackers.court_keypoints import _load_resnet_pt
+        return _load_yolo(path)
+    from ..trackers.court_keypoints import _load_resnet
 
-        return _load_resnet_pt(path)
-    raise ValueError(f"unknown model family {family!r}")
+    return _load_resnet(path)

@@ -578,3 +578,27 @@ def test_evaluate_on_card_runs_k1(dev, tmp_path, capsys):
     assert conv3x3.launches > before
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["images"] == 3
+
+
+def test_msgpack_tracknet_on_card_equals_pt(dev, tmp_path):
+    """A TrackNet written as the JAX package's .msgpack serves through K1
+    and K2 on the card exactly as the same weights from the reference's .pt:
+    the same weights, the same balls, both kernels launched."""
+    from padel_analytics_tpu_torch.models.tracknet import make_tracknet
+    from padel_analytics_tpu_torch.training.checkpoint import save_tracknet
+
+    model = _he_normal(make_tracknet(8, "concat")[0], 3)
+    save_tracknet(tmp_path / "tn.pt", model, 8, "concat")
+    save_tracknet(tmp_path / "tn.msgpack", model, 8, "concat")
+    frames = clip_frames(np.random.default_rng(2))
+    cfg = BallTrackerConfig(height=72, width=128, batch_size=4, median_max_sample_num=6)
+    balls, launches = [], []
+    for path in ("tn.pt", "tn.msgpack"):
+        tracker = BallTracker(str(tmp_path / path), config=cfg, device=dev)
+        tracker.video_info_post_init(VideoInfo(width=W, height=H, fps=10.0, total_frames=N))
+        k1, k2 = conv3x3.launches, heatmap.launches
+        with torch.inference_mode():
+            balls.append([b.serialize() for b in tracker.predict_frames(iter(frames), N)])
+        launches.append((conv3x3.launches - k1, heatmap.launches - k2))
+    assert balls[0] == balls[1]
+    assert launches[0] == launches[1] and all(n > 0 for n in launches[0]), launches

@@ -14,8 +14,8 @@
   KeypointsTracker loads;
 - images decode with Pillow where OpenCV is absent;
 - --resume reads each file back (with --epochs 0 the written weights equal
-  the read ones); a .msgpack path (the JAX apps' format) raises ValueError
-  naming the JAX package; --model-parallel 2 raises NotImplementedError
+  the read ones); --out / --resume take the JAX apps' .msgpack too (the JAX
+  package's load_variables reads what is written); --model-parallel 2 raises NotImplementedError
   naming ROADMAP item 12b; --data-parallel 2 without a process group
   raises; with no --device the apps take cuda, and raise where there is no
   card (no CPU fallback).
@@ -199,9 +199,36 @@ def test_images_decode_without_opencv(rally, monkeypatch):
 
 
 def test_msgpack_resume_refused(rally, tmp_path):
-    with pytest.raises(ValueError, match="padel_analytics_tpu"):
+    """--out .msgpack writes the JAX package's Flax tree, which its
+    _engine.load_variables reads and --resume reads back; a .msgpack that
+    is missing, or a suffix the loaders do not know, is refused (no random
+    weights)."""
+    import jax.numpy as jnp
+    from padel_analytics_tpu.models.tracknet import make_tracknet as jax_make_tracknet
+    from padel_analytics_tpu.trackers import _engine
+
+    from padel_analytics_tpu_torch.models.convert import state_dict_from_flax
+
+    out = tmp_path / "tn.msgpack"
+    assert train_tracknet.main(_ball_args(rally, out)) == 0
+    model, in_dim = jax_make_tracknet(4, "concat")
+    variables = _engine.load_variables(model, jnp.zeros((1, 32, 64, in_dim)), str(out))
+    resumed = load_for_resume("tracknet", out)
+    sd = state_dict_from_flax({k: dict(v) for k, v in variables.items()})
+    _equal_state({k: v for k, v in resumed.items() if "num_batches" not in k},
+                 {k: v for k, v in sd.items() if "num_batches" not in k})
+    again = tmp_path / "again.pt"
+    assert train_tracknet.main(_ball_args(rally, again, "--resume", str(out),
+                                          "--epochs", "0")) == 0
+    _equal_state({k: v for k, v in load_for_resume("tracknet", again).items()
+                  if "num_batches" not in k},
+                 {k: v for k, v in resumed.items() if "num_batches" not in k})
+    with pytest.raises(FileNotFoundError):
         train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--resume",
-                                       str(tmp_path / "tracknet.msgpack")))
+                                       str(tmp_path / "missing.msgpack")))
+    with pytest.raises(ValueError, match="msgpack"):
+        train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--resume",
+                                       str(tmp_path / "tracknet.ckpt")))
 
 
 def test_model_parallel_and_data_parallel_refused(rally, tmp_path):

@@ -179,8 +179,10 @@ def test_num_classes_inferred_from_checkpoint(tmp_path):
         PlayerTracker(str(path), None, model_variant="n", num_classes=3, device="cpu")
     with pytest.raises(FileNotFoundError):
         PlayerTracker(str(tmp_path / "missing.pt"), None, model_variant="n", device="cpu")
-    with pytest.raises(ValueError, match=".pt"):
-        PlayerTracker(str(tmp_path / "weights.msgpack"), None, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        PlayerTracker(str(tmp_path / "missing.msgpack"), None, model_variant="n", device="cpu")
+    with pytest.raises(ValueError, match=".pt, .pth or .msgpack"):
+        PlayerTracker(str(tmp_path / "weights.bin"), None, device="cpu")
 
 
 def test_random_init_is_seeded():
