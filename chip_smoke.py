@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's ball, players, pose, fused, collect,
-model-court, multi-device and training paths, its CLI, its weights formats
-and its validation app on one NVIDIA GPU.
+model-court, multi-device and training paths, its CLI, its weights formats,
+its validation app and the mesh's model axis on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
+    python3 chip_smoke.py --mesh-ranks N --model-axis-only   # only 19 (c) on N cards
 
 Phases (any failure raises, so the exit code is non-zero and no result line
 is printed):
@@ -178,14 +179,31 @@ is printed):
    with --fast-path, the fast plan's max px against the reference plan per
    tracker (random weights); (d) compare_predictions over (b)'s two runs
    (0 px), and BallVelocityEstimator and detect_hits over (b)'s results:
-   one estimate's m/s, the hit count and their host ms.
+   one estimate's m/s, the hit count and their host ms;
+19. the mesh's model axis (conv-channel tensor parallelism), fp32 with TF32
+   off: (a) two processes on the card joined by gloo (the phase's choice:
+   NCCL refuses two ranks on one card), a data 1 x model 2 mesh; each family
+   at full width (YOLOv8m detect and pose at 640 and TrackNet at 288x512,
+   batch cut to 2; ResNet-50 at 224, batch 8; InpaintNet, batch 32) takes
+   one sharded step from seeded weights against the one-process card step
+   on the same batch (bounds at TP_LOSS_TOL), then two steps timed with the
+   port's StageTimer (gloo stages every collective through the host: the
+   step ms measure that, not tensor parallelism on the card), the per-rank
+   peak memory and parameter + Adam bytes against the unsharded model's;
+   (b) apps.train_tracknet --model-parallel 2 on the two ranks for one step
+   on a 15-frame 1024x576 rally against --model-parallel 1, its gathered
+   .pt served by BallTracker on the card through K1 and K2 (launches
+   counted: the kernels line's 'model_axis').
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
 rank equal to a one-card run()'s with the scan; the full-width reference
 plan through the mesh runner (cls heads calibrated once, on card 0), every
 rank's results equal to rank 0's, its frames/s beside the one-card run()'s
-and run_mesh's on card 0, and the ball ints' agreement with run().
+and run_mesh's on card 0, and the ball ints' agreement with run(). Then
+(19 c) one YOLOv8m step (batch 8) at data N/2 x model 2 over NCCL against
+the one-card step, within phase 19's bounds; --model-axis-only runs this
+alone.
 
 The line before the last is the kernels' JSON record (the card's name and
 power limit with --mesh-ranks); the last line is {"ok": true, "device":
@@ -202,6 +220,7 @@ import hashlib
 import io
 import json
 import math
+import os
 import socket
 import subprocess
 import sys
@@ -244,13 +263,21 @@ from padel_analytics_tpu_torch.trackers import (
     PlayerTracker,
     TrackingRunner,
 )
-from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh
+from padel_analytics_tpu_torch.core.profiling import StageTimer
+from padel_analytics_tpu_torch.parallel import (
+    gather_params,
+    init_distributed,
+    make_mesh,
+    shard_params_for_tp,
+)
+from padel_analytics_tpu_torch.parallel.tensor_parallel import tp_axis
 from padel_analytics_tpu_torch.training import data as tdata
 from padel_analytics_tpu_torch.training import init_train_state
 from padel_analytics_tpu_torch.training import inpaintnet as tinp
 from padel_analytics_tpu_torch.training import resnet_court as tcourt
 from padel_analytics_tpu_torch.training import tracknet as ttn
 from padel_analytics_tpu_torch.training import yolo as tyolo
+from padel_analytics_tpu_torch.training.checkpoint import load_for_resume
 from padel_analytics_tpu_torch.trackers import fused as fused_mod
 from padel_analytics_tpu_torch.trackers.fused import PACK_THREADS
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
@@ -2036,6 +2063,26 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _spawn(target, world: int, *args, timeout: float = 900) -> None:
+    """Run target(rank, port, *args) in `world` spawned processes; raises
+    unless every one exits 0 (none outlives the call)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, *args)) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(all(p.exitcode == 0 for p in procs), f"{target.__name__}: exit codes "
+                                               f"{[p.exitcode for p in procs]}")
+
+
 def _run_files(trackers, clip, out: Path, **kwargs) -> dict[str, bytes]:
     """One TrackingRunner(fused=True, render=False, collect_data=True) run
     saving each tracker's cache and data.csv under `out`; their bytes."""
@@ -2254,7 +2301,7 @@ def phase_mesh(mesh, frames, smi: str) -> dict:
     return counts
 
 
-def _mesh_rank(rank: int, world: int, port: int, out: str) -> None:
+def _mesh_rank(rank: int, port: int, world: int, out: str) -> None:
     """One rank of --mesh-ranks: NCCL on card `rank`; writes its caches and
     times under `out`."""
     out = Path(out)
@@ -2291,8 +2338,6 @@ def _mesh_rank(rank: int, world: int, port: int, out: str) -> None:
 
 def phase_mesh_cards(world: int, smi: str) -> dict:
     """The mesh over `world` cards, one process each (--mesh-ranks)."""
-    import multiprocessing
-
     check(torch.cuda.device_count() >= world, f"{world} ranks need {world} cards")
     frames = synthetic_players(128, seed=9)
     n = len(frames)
@@ -2303,20 +2348,7 @@ def phase_mesh_cards(world: int, smi: str) -> dict:
         calib = {str(t): calibrate_cls_head(t, frames[:8]) for t in trackers[:2]}
         for t, name in zip(trackers[:2], TRACKER_NAMES):
             torch.save(t.engine.model.state_dict(), tmp / f"{name}.pt")
-        ctx = multiprocessing.get_context("spawn")
-        port = _free_port()
-        procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, str(tmp)))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=900)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        check(all(p.exitcode == 0 for p in procs),
-              f"mesh ranks: exit codes {[p.exitcode for p in procs]}")
+        _spawn(_mesh_rank, world, world, str(tmp))
         ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(world)]
         # The decisive fakes: rank 0's files equal a one-card run()'s with
         # the scan, the other ranks write none; every rank's results equal.
@@ -2622,6 +2654,17 @@ def _write_png(path: Path, image: np.ndarray) -> None:
         Image.fromarray(image).save(path)
 
 
+def _write_rally_dir(root: Path, frames, gt, vis) -> None:
+    fd = root / "frame" / "r1"
+    fd.mkdir(parents=True)
+    (root / "csv").mkdir()
+    for i, f in enumerate(frames):
+        _write_png(fd / f"{i}.png", f)
+    rows = ["Frame,X,Y,Visibility"] + [f"{i},{int(g[0])},{int(g[1])},{v}"
+                                       for i, (g, v) in enumerate(zip(gt, vis))]
+    (root / "csv" / "r1_ball.csv").write_text("\n".join(rows) + "\n")
+
+
 def _ball_error(tracker, frames, gt, vis, cap: float) -> tuple[float, int]:
     """Mean distance (px) of the tracker's ball from the truth over the
     visible frames, a miss or a distance beyond `cap` counted as `cap`;
@@ -2645,14 +2688,7 @@ def phase_train_serve(smi: str) -> dict:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        fd = root / "frame" / "r1"
-        fd.mkdir(parents=True)
-        (root / "csv").mkdir()
-        for i, f in enumerate(frames):
-            _write_png(fd / f"{i}.png", f)
-        rows = ["Frame,X,Y,Visibility"] + [f"{i},{int(g[0])},{int(g[1])},{v}"
-                                           for i, (g, v) in enumerate(zip(gt, vis))]
-        (root / "csv" / "r1_ball.csv").write_text("\n".join(rows) + "\n")
+        _write_rally_dir(root, frames, gt, vis)
         t0 = time.perf_counter()
         check(train_tracknet.main(["--match-dir", str(root), "--rallies", "r1", "--epochs",
                                    str(SERVE_EPOCHS), "--batch", "8", "--device", SERVE_DEVICE,
@@ -2987,6 +3023,286 @@ def phase_weights_validate(smi: str) -> dict:
     return runs["msgpack"]["counts"]
 
 
+# --------------------------------------------------- phase 19: the model axis
+
+#: Phase 19's global batch of each family, cut from phase 17's (YOLOv8m 8,
+#: TrackNet 8): under gloo every sharded conv's output is all-gathered and
+#: its input gradient all-reduced through the host.
+TP_BATCH = {"yolo_det": 2, "yolo_pose": 2, "tracknet": 2, "court_resnet": 8, "inpaintnet": 32}
+#: Steps each run times after the compared one (the port's StageTimer).
+TP_TIMED = 2
+#: A sharded step against the one-process card step from the same weights on
+#: the same batch (phase 17 (b)'s bounds): the loss within 1e-5 (relative),
+#: the gathered gradient within 1e-3 (relative L2, whole model; cuDNN picks
+#: other algorithms for fewer output channels and gloo sums in its own
+#: order) or, where it is farther, no farther from a float64 step on the
+#: card than twice the one-process step is, plus 1e-4 (phase 17 (a)'s
+#: yardstick: the fp32 step of a random-weight TrackNet or ResNet-50 is
+#: itself 0.2-2% from float64, PERF.md §6, PR 10; my first chip run of this
+#: phase measured TrackNet's sharded and one-process gradients 2.5e-3 apart),
+#: the running statistics within 1e-5 of their BatchNorm's largest
+#: running variance (a mean near 0 is a sum that cancels: its error scales
+#: with the spread, not with itself), and after the Adam step at most 1% of the parameters more than
+#: 0.05 lr away (Adam's first step turns a rounding-noise gradient into
+#: +-lr).
+TP_LOSS_TOL, TP_GRAD_TOL, TP_STATS_TOL, TP_PARAM_LR, TP_PARAM_FRAC = 1e-5, 1e-3, 1e-5, 0.05, 1e-2
+TP_F64_RATIO, TP_F64_FLOOR = 2.0, 1e-4
+TP_SEED, TP_LR = 19, 1e-3
+#: 19 (b): the TP-trained TrackNet's rally (frames, width, height) for one
+#: step of 8 windows of 8 frames, and the served clip (phase 17's).
+TP_TRAIN_CLIP = (15, 1024, 576)
+#: 19 (c): YOLOv8m's global batch over data 2 x model 2 on four cards.
+TP_CARDS_BATCH = 8
+
+
+def _tp_family(name: str, batch: int):
+    """(the seeded model, its phase-17 batch cut to `batch` rows, the step
+    maker taking the mesh): the same on every process."""
+    model, full, _, step = _train_family(name, np.random.default_rng(TP_SEED))
+    return model, [t[:batch] for t in full], step
+
+
+def _state_bytes(state) -> int:
+    """This process's bytes of parameters and Adam moments."""
+    tensors = list(state.model.parameters()) + [
+        t for s in state.optimizer.state.values() for t in s.values()
+        if torch.is_tensor(t) and t.dim() > 0]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tp_step(name: str, dev, batch: int, mesh=None) -> dict:
+    """One Adam step of `name` on its phase-19 batch on `dev`, the model
+    sharded over `mesh.model` where given (the batch split over the mesh's
+    'data' axis): the loss, the gathered gradient and parameters after the
+    step, the buffers (CPU tensors), this process's parameter + Adam bytes;
+    then TP_TIMED more steps, timed with the port's StageTimer, and the
+    process's peak device memory above what it held before the call."""
+    base = torch.cuda.memory_allocated(dev)  # what the process held before
+    model, full, step = _tp_family(name, batch)
+    rows = slice(None)
+    if mesh is not None:
+        shard_params_for_tp(model, mesh)
+        per = batch // mesh.size
+        rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    b = [t[rows].to(dev) for t in full]
+    state = init_train_state(model.to(dev), TP_LR)
+    fn = step(mesh)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StageTimer()
+    with timer.stage("first") as s:
+        state, loss = fn(state, *b)
+        s.value = loss
+    sharded = {f"{k}.weight" for k, m in model.named_modules() if tp_axis(m) is not None}
+
+    def whole(k, t):
+        t = mesh.model.all_gather(t.detach(), 0) if k in sharded else t.detach()
+        return t.to("cpu", copy=True)  # a copy: the timed steps go on to change `t`
+
+    out = {"loss": float(loss), "sharded": len(sharded), "bytes": _state_bytes(state),
+           "grads": {k: whole(k, p.grad) for k, p in model.named_parameters()},
+           "params": {k: whole(k, p) for k, p in model.named_parameters()},
+           "buffers": {k: v.detach().to("cpu", copy=True) for k, v in model.named_buffers()}}
+    for _ in range(TP_TIMED):
+        with timer.stage("step") as s:
+            state, s.value = fn(state, *b)
+    out["first_ms"] = timer.summary()["first"]["mean_ms"]
+    out["step_ms"] = timer.summary()["step"]["mean_ms"]
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    return out
+
+
+def tp_f64_grads(name: str, dev, batch: int) -> dict:
+    """The one-process step's gradient of `name` in float64 on `dev` (the
+    models keep their own fp32 casts), as CPU tensors."""
+    model, full, step = _tp_family(name, batch)
+    model = model.double().to(dev)
+    step(None)(init_train_state(model, TP_LR), *[_f64(t).to(dev) for t in full])
+    return {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+
+def _grad_rel(got: dict, want: dict) -> tuple[float, float]:
+    """(relative L2 distance of gradient `got` from `want` over every
+    parameter, the worst tensor's)."""
+    num = den = worst = 0.0
+    for k, w in want.items():
+        d2, w2 = float((got[k].double() - w.double()).norm()) ** 2, float(w.double().norm()) ** 2
+        num, den, worst = num + d2, den + w2, max(worst, (d2 / max(w2, 1e-60)) ** 0.5)
+    return (num / den) ** 0.5, worst
+
+
+def tp_compare(name: str, got: dict, want: dict, what: str, f64) -> dict:
+    """`got` (a sharded step's tp_step) against `want` (the one-process
+    step's) within phase 19's bounds, `f64()` giving the float64 yardstick
+    where the gradients are farther apart than TP_GRAD_TOL; returns the
+    errors."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad, worst = _grad_rel(got["grads"], want["grads"])
+    yardstick = None
+    if grad > TP_GRAD_TOL:
+        ref = f64()
+        yardstick = (_grad_rel(got["grads"], ref)[0], _grad_rel(want["grads"], ref)[0])
+    bufs = want["buffers"]
+    stats = max([float((got["buffers"][k] - v).abs().max())
+                 / float(bufs[k.rsplit(".", 1)[0] + ".running_var"].abs().max())
+                 for k, v in bufs.items() if ".running_" in k] or [0.0])
+    d = torch.cat([((got["params"][k] - w).abs() / TP_LR).reshape(-1)
+                   for k, w in want["params"].items()])
+    frac = float((d > TP_PARAM_LR).float().mean())
+    check(math.isfinite(got["loss"]) and loss_rel <= TP_LOSS_TOL,
+          f"{what} {name}: loss {got['loss']} vs {want['loss']}")
+    check(grad <= TP_GRAD_TOL or yardstick[0] <= TP_F64_RATIO * yardstick[1] + TP_F64_FLOOR,
+          f"{what} {name}: gradient rel L2 {grad}, from float64 {yardstick} (sharded, one "
+          "process)")
+    check(stats <= TP_STATS_TOL, f"{what} {name}: running statistics {stats}")
+    check(frac <= TP_PARAM_FRAC, f"{what} {name}: {frac} of the parameters beyond "
+                                 f"{TP_PARAM_LR} lr")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad, "worst_tensor": worst,
+            "stats_rel": stats, "param_frac": frac, "f64": yardstick,
+            "grad_text": f"gradient rel L2 {grad:.2e} (worst tensor {worst:.2e})" + (
+                "" if yardstick is None else f", from a float64 card step {yardstick[0]:.2e} "
+                f"against the one-process step's {yardstick[1]:.2e}")}
+
+
+def _tp_rank(rank: int, port: int, out: str, device: str) -> None:
+    """One of phase 19's two ranks, both on `device` (the card), joined by
+    gloo (the phase's choice: NCCL refuses two ranks on one card): (a)
+    every family's sharded step on a data 1 x model 2 mesh; (b)
+    apps.train_tracknet --model-parallel 2 on the rally under `out`/data."""
+    out = Path(out)
+    dev = torch.device(device)
+    os.environ["LOCAL_RANK"] = str(dev.index)  # the apps' device: both ranks on one card
+    torch.cuda.set_device(dev)
+    init_distributed(dev, backend="gloo", rank=rank, world_size=2, timeout_s=600,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh(data=1, model=2, device=dev)
+        for name in TRAIN_FAMILIES:
+            torch.save(tp_step(name, dev, TP_BATCH[name], mesh), out / f"{name}{rank}.pt")
+            torch.cuda.empty_cache()
+        check(train_tracknet.main(_tp_app_argv(out, out / f"tp{rank}.pt")
+                                  + ["--model-parallel", "2"]) == 0, "train_tracknet TP")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _tp_app_argv(root: Path, dest: Path) -> list[str]:
+    """apps.train_tracknet on the card for one step of 8 windows (a
+    sharded and a one-process run part within a few free-running Adam
+    steps, so one is compared) on the rally under `root`/data."""
+    return ["--match-dir", str(root / "data"), "--rallies", "r1", "--epochs", "1", "--batch",
+            "8", "--device", SERVE_DEVICE, "--height", str(SERVE_HW[0]), "--width",
+            str(SERVE_HW[1]), "--out", str(dest)]
+
+
+def phase_model_axis(dev, smi: str) -> dict:
+    """19 (a) each family's sharded step on two gloo ranks on the card against
+    the one-process card step; (b) train_tracknet --model-parallel 2 on the
+    card against --model-parallel 1, its .pt served by BallTracker through
+    K1 and K2 (launches counted)."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        frames, gt, vis = ball_rally(*TP_TRAIN_CLIP, seed=21)
+        _write_rally_dir(tmp / "data", frames, gt, vis)
+        t0 = time.perf_counter()
+        _spawn(_tp_rank, 2, str(tmp), str(dev))
+        ranks_s = time.perf_counter() - t0
+        for name in TRAIN_FAMILIES:
+            want = tp_step(name, dev, TP_BATCH[name])
+            got = [torch.load(tmp / f"{name}{r}.pt") for r in (0, 1)]
+            err = tp_compare(name, got[0], want, "model axis",
+                             lambda: tp_f64_grads(name, dev, TP_BATCH[name]))
+            check(got[1]["loss"] == got[0]["loss"], f"model axis {name}: the ranks' losses")
+            apart = max(float((got[1]["params"][k] - v).abs().max())
+                        for k, v in got[0]["params"].items()) / TP_LR
+            print(f"model axis {name}: batch {TP_BATCH[name]}, data 1 x model 2, gloo on "
+                  f"one card; {got[0]['sharded']} weights sharded; loss {got[0]['loss']:.6f} "
+                  f"vs one process {want['loss']:.6f} (rel {err['loss_rel']:.2e}), "
+                  f"{err['grad_text']}, running statistics {err['stats_rel']:.2e}, "
+                  f"parameters beyond {TP_PARAM_LR} lr {err['param_frac']:.2e}, the ranks' "
+                  f"parameters "
+                  f"{apart:.2e} lr apart; step ms (gloo staging through the host, not TP "
+                  f"on the card) first {got[0]['first_ms']:.1f}, then {got[0]['step_ms']:.1f} "
+                  f"/ {got[1]['step_ms']:.1f} (ranks 0 / 1) vs one process "
+                  f"{want['step_ms']:.1f}; peak memory a rank {got[0]['peak_gib']:.2f} / "
+                  f"{got[1]['peak_gib']:.2f} GiB vs {want['peak_gib']:.2f}; parameters + "
+                  f"Adam a rank {got[0]['bytes'] / 2**20:.1f} MiB vs unsharded "
+                  f"{want['bytes'] / 2**20:.1f} MiB ({got[0]['bytes'] / want['bytes']:.3f}); "
+                  f"{smi}")
+            torch.cuda.empty_cache()
+        check(not (tmp / "tp1.pt").exists(), "model axis: rank 1 wrote the checkpoint")
+        check(train_tracknet.main(_tp_app_argv(tmp, tmp / "one.pt")) == 0, "train_tracknet")
+        got, want = (load_for_resume("tracknet", tmp / f) for f in ("tp0.pt", "one.pt"))
+        weights = [k for k in want if want[k].is_floating_point() and "running" not in k]
+        d = torch.cat([((got[k] - want[k]).abs() / TP_LR).reshape(-1) for k in weights])
+        frac = float((d > TP_PARAM_LR).float().mean())
+        stats = max(float((got[k] - want[k]).abs().max())
+                    / float(want[k.rsplit(".", 1)[0] + ".running_var"].abs().max())
+                    for k in want if ".running_" in k)
+        check(frac <= TP_PARAM_FRAC and stats <= TP_STATS_TOL,
+              f"train_tracknet --model-parallel 2: {frac} beyond {TP_PARAM_LR} lr, "
+              f"statistics {stats}")
+        n, w, h = SERVE_CLIP
+        clip, clip_gt, clip_vis = ball_rally(n, w, h, seed=19)
+        cfg = BallTrackerConfig(height=SERVE_HW[0], width=SERVE_HW[1])
+        conv3x3.reset_launches()
+        heatmap.reset_launches()
+        served = BallTracker(str(tmp / "tp0.pt"), config=cfg, device=SERVE_DEVICE,
+                             channel_quirk=False)
+        err = _ball_error(served, clip, clip_gt, clip_vis, 50.0)
+        launches = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+        chunks = -(-(n + 7) // 8)
+        check(conv3x3.launches == 17 * chunks and heatmap.launches >= chunks,
+              f"model axis -> serve: launches {launches}")
+        check(all(math.isfinite(b.xy[0]) and math.isfinite(b.xy[1]) for b in served.results),
+              "model axis -> serve: non-finite ball")
+    print(f"model axis -> serve: apps.train_tracknet --model-parallel 2 (two gloo ranks on "
+          f"the card, one step of 8 windows at {SERVE_HW[0]}x{SERVE_HW[1]}) against "
+          f"--model-parallel 1: {frac:.2e} of the parameters beyond {TP_PARAM_LR} lr, running "
+          f"statistics {stats:.2e}; the two ranks' phase {ranks_s:.1f} s; its .pt served by "
+          f"BallTracker on {n} frames {w}x{h}: launches {launches}, ball error {err[0]:.2f} px "
+          f"(miss = 50 px, {err[1]} within 5 px); {smi}")
+    return launches
+
+
+def _tp_card_rank(rank: int, port: int, world: int, out: str) -> None:
+    """One rank of 19 (c): NCCL on card `rank`, a data world/2 x model 2
+    mesh, one YOLOv8m step."""
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    init_distributed(dev, rank=rank, world_size=world, timeout_s=600,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        mesh = make_mesh(data=world // 2, model=2, device=dev)
+        torch.save(tp_step("yolo_det", dev, TP_CARDS_BATCH, mesh), Path(out) / f"r{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_model_axis_cards(world: int, smi: str) -> None:
+    """19 (c): one YOLOv8m step at data world/2 x model 2 over NCCL, one
+    process a card, against the one-card step."""
+    check(torch.cuda.device_count() >= world and world % 2 == 0,
+          f"the model axis over {world} ranks needs {world} cards, an even number")
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn(_tp_card_rank, world, world, tmp)
+        got = [torch.load(Path(tmp) / f"r{r}.pt") for r in range(world)]
+    want = tp_step("yolo_det", torch.device("cuda", 0), TP_CARDS_BATCH)
+    err = tp_compare("yolo_det", got[0], want, f"model axis over {world} cards",
+                     lambda: tp_f64_grads("yolo_det", torch.device("cuda", 0), TP_CARDS_BATCH))
+    for r in range(1, world):
+        check(got[r]["loss"] == got[0]["loss"], f"model axis over {world} cards: rank {r}'s loss")
+    print(f"model axis over {world} cards ({smi}): YOLOv8m, batch {TP_CARDS_BATCH}, data "
+          f"{world // 2} x model 2, NCCL; loss {got[0]['loss']:.6f} vs one card "
+          f"{want['loss']:.6f} (rel {err['loss_rel']:.2e}), {err['grad_text']}, running "
+          f"statistics {err['stats_rel']:.2e}, parameters beyond {TP_PARAM_LR} lr "
+          f"{err['param_frac']:.2e}; step ms {[round(g['step_ms'], 1) for g in got]} vs one "
+          f"card {want['step_ms']:.1f}; peak GiB a rank {[round(g['peak_gib'], 2) for g in got]} "
+          f"vs {want['peak_gib']:.2f}; parameters + Adam a rank {got[0]['bytes'] / 2**20:.1f} "
+          f"MiB vs {want['bytes'] / 2**20:.1f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -2995,7 +3311,9 @@ def main() -> None:
     phase_build()
     if "--mesh-ranks" in sys.argv:
         world = int(sys.argv[sys.argv.index("--mesh-ranks") + 1])
-        phase_mesh_cards(world, smi)
+        if "--model-axis-only" not in sys.argv:
+            phase_mesh_cards(world, smi)
+        phase_model_axis_cards(world, smi)
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3037,6 +3355,7 @@ def main() -> None:
     phase_train(dev, smi)
     by_path.update(phase_train_serve(smi))
     by_path["validate"] = phase_weights_validate(smi)
+    by_path["model_axis"] = phase_model_axis(dev, smi)
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

@@ -1,5 +1,6 @@
-"""What the train apps share: the device, the data-parallel mesh, each
-rank's shard of a global batch, rank-0 logging, the epoch loss."""
+"""What the train apps share: the device, the (data, model) mesh, each
+rank's shard of a global batch, the tensor-parallel placement and its
+gather before the save, rank-0 logging, the epoch loss."""
 
 from __future__ import annotations
 
@@ -11,13 +12,17 @@ import torch.distributed as dist
 
 from ..models.layers import lecun_normal_
 from ..parallel.mesh import Mesh, init_distributed, make_mesh
+from ..parallel.tensor_parallel import gather_params, shard_params_for_tp
 
 
 def add_device_args(parser) -> None:
     parser.add_argument("--data-parallel", type=int, default=-1,
-                        help="ranks of the data axis: -1 = every process of the group (one "
-                        "process per device, e.g. torchrun --nproc-per-node=N)")
-    parser.add_argument("--model-parallel", type=int, default=1)
+                        help="ranks of the data axis: -1 = every process of the group over "
+                        "--model-parallel (one process per device, e.g. torchrun "
+                        "--nproc-per-node=N)")
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="ranks of the model axis: the wide conv and dense kernels' output "
+                        "channels split over this many neighbouring processes")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
 
 
@@ -32,21 +37,23 @@ def resolve_device(device: str) -> torch.device:
 
 def setup(args) -> tuple[torch.device, Optional[Mesh]]:
     """(this process's device, the mesh or None). A process group (one
-    already joined, or torchrun's WORLD_SIZE > 1) makes a mesh over it;
-    otherwise the app runs alone, which --data-parallel N > 1 refuses."""
+    already joined, or torchrun's WORLD_SIZE > 1) makes the (data, model)
+    mesh over it, logged once; otherwise the app runs alone, which
+    --data-parallel or --model-parallel N > 1 refuses."""
     device = resolve_device(args.device)
-    if args.model_parallel != 1:
-        make_mesh(data=args.data_parallel, model=args.model_parallel)  # raises
     if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         init_distributed(device)
     if dist.is_initialized():
         if device.type == "cuda":
             device = None  # cuda:LOCAL_RANK
-        mesh = make_mesh(data=args.data_parallel, device=device)
+        mesh = make_mesh(data=args.data_parallel, model=args.model_parallel, device=device)
+        log(mesh, f"train: mesh {mesh.shape}")
         return mesh.device, mesh
-    if args.data_parallel not in (-1, 1):
-        raise ValueError(f"--data-parallel {args.data_parallel} needs that many processes, one "
-                         "per device (torchrun --nproc-per-node=N)")
+    for flag, n in (("--data-parallel", args.data_parallel),
+                    ("--model-parallel", args.model_parallel)):
+        if n not in (-1, 1):
+            raise ValueError(f"{flag} {n} needs that many processes, one per device "
+                             "(torchrun --nproc-per-node=N)")
     return device, None
 
 
@@ -56,7 +63,9 @@ def init_weights(model, seed: int = 0):
 
 
 def shard(n: int, mesh: Optional[Mesh]) -> slice:
-    """This rank's rows of a global batch of n (n divisible by the mesh)."""
+    """This rank's rows of a global batch of n, split over the 'data' axis
+    (n divisible by it); every model rank of a data index takes the same
+    rows."""
     if mesh is None:
         return slice(0, n)
     if n % mesh.size:
@@ -65,8 +74,26 @@ def shard(n: int, mesh: Optional[Mesh]) -> slice:
     return slice(mesh.rank * per, (mesh.rank + 1) * per)
 
 
+def place(model, mesh: Optional[Mesh], device: torch.device):
+    """`model` (the same full weights on every rank) sharded over the
+    mesh's 'model' axis (`shard_params_for_tp`; nothing without one), on
+    `device`."""
+    if mesh is not None:
+        shard_params_for_tp(model, mesh)
+    return model.to(device)
+
+
+def save_on_main(mesh: Optional[Mesh], model, save) -> None:
+    """Gather the model's shards on every rank (a collective), then
+    `save(model)` on the mesh's first process alone."""
+    if mesh is not None:
+        gather_params(model, mesh)
+    if is_main(mesh):
+        save(model)
+
+
 def is_main(mesh: Optional[Mesh]) -> bool:
-    return mesh is None or mesh.rank == 0
+    return mesh is None or mesh.is_main
 
 
 def log(mesh: Optional[Mesh], msg: str) -> None:

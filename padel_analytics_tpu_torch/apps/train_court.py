@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     from ..training.data import load_image_bicubic01
     from ..training.resnet_court import make_court_train_step, normalize_court_targets
     from ..training.state import init_train_state
-    from ._train import init_weights, is_main, log, mean_loss, setup, shard
+    from ._train import init_weights, log, mean_loss, place, save_on_main, setup, shard
 
     device, mesh = setup(args)
     paths, kpts_px = load_dataset(args.images, args.keypoints)
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     model = init_weights(ResNet50Regressor(num_outputs=2 * n_kp, stage_sizes=stage_sizes))
     if args.resume:
         model.load_state_dict(load_for_resume("resnet", args.resume))
-    state = init_train_state(model.to(device), args.lr)
+    state = init_train_state(place(model, mesh, device), args.lr)
     step = make_court_train_step(mesh)
 
     rng = np.random.default_rng(0)
@@ -105,8 +105,7 @@ def main(argv=None) -> int:
         log(mesh, f"epoch {epoch}: loss {mean_loss(losses):.5f} "
                   f"({time.perf_counter() - t0:.1f}s)")
 
-    if is_main(mesh):
-        save_resnet(args.out, state.model)
+    save_on_main(mesh, state.model, lambda m: save_resnet(args.out, m))
     log(mesh, f"train_court: wrote {args.out}")
     return 0
 

@@ -68,14 +68,14 @@ def main(argv=None) -> int:
     )
     from ..training.inpaintnet import make_inpaintnet_train_step
     from ..training.state import init_train_state
-    from ._train import init_weights, is_main, log, mean_loss, setup, shard
+    from ._train import init_weights, log, mean_loss, place, save_on_main, setup, shard
 
     device, mesh = setup(args)
     model = init_weights(InpaintNet())
     if args.resume:
         model.load_state_dict(load_for_resume("inpaintnet", args.resume))
-    state = init_train_state(model.to(device), args.lr)
-    log(mesh, f"train: device {device}, {mesh.size if mesh else 1} rank(s)")
+    state = init_train_state(place(model, mesh, device), args.lr)
+    log(mesh, f"train: device {device}")
 
     img_wh = tuple(args.img_wh) if args.img_wh else None
     rng = np.random.default_rng(0)
@@ -106,8 +106,7 @@ def main(argv=None) -> int:
         log(mesh, f"epoch {epoch}: loss {mean_loss(losses):.6f} "
                   f"({len(losses)} steps, {time.perf_counter() - t0:.1f}s)")
 
-    if is_main(mesh):
-        save_inpaintnet(args.out, state.model, args.seq_len)
+    save_on_main(mesh, state.model, lambda m: save_inpaintnet(args.out, m, args.seq_len))
     log(mesh, f"train: wrote {args.out} after {state.step} steps")
     return 0
 

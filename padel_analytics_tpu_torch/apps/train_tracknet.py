@@ -11,7 +11,9 @@ loads.
       [--mixup 0.5] [--resume tracknet.pt] [--device cpu]
 
 On N cards: torchrun --nproc-per-node=N -m ... --data-parallel N (each
-rank takes its shard of every global batch of --batch windows).
+rank takes its shard of every global batch of --batch windows); with
+--model-parallel M over N = D x M processes, the wide convs' output
+channels split over M neighbouring ranks and the batch over D.
 """
 
 from __future__ import annotations
@@ -47,15 +49,15 @@ def main(argv=None) -> int:
     from ..training.data import load_rally, window_batches
     from ..training.state import init_train_state
     from ..training.tracknet import make_tracknet_train_step
-    from ._train import init_weights, is_main, log, mean_loss, setup, shard
+    from ._train import init_weights, log, mean_loss, place, save_on_main, setup, shard
 
     device, mesh = setup(args)
     model, _ = make_tracknet(args.seq_len, "concat")
     init_weights(model)
     if args.resume:
         model.load_state_dict(load_for_resume("tracknet", args.resume))
-    state = init_train_state(model.to(device), args.lr)
-    log(mesh, f"train: device {device}, {mesh.size if mesh else 1} rank(s)")
+    state = init_train_state(place(model, mesh, device), args.lr)
+    log(mesh, f"train: device {device}")
 
     clips = [load_rally(args.match_dir, rid, args.height, args.width, device=device)
              for rid in args.rallies]
@@ -77,8 +79,8 @@ def main(argv=None) -> int:
         log(mesh, f"epoch {epoch}: loss {mean_loss(losses):.5f} "
                   f"({len(losses)} steps, {time.perf_counter() - t0:.1f}s)")
 
-    if is_main(mesh):
-        save_tracknet(args.out, state.model, args.seq_len, "concat")
+    save_on_main(mesh, state.model,
+                 lambda m: save_tracknet(args.out, m, args.seq_len, "concat"))
     log(mesh, f"train: wrote {args.out} after {state.step} steps")
     return 0
 

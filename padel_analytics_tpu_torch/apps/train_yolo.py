@@ -91,7 +91,7 @@ def main(argv=None) -> int:
     from ..training.data import load_image_bicubic01
     from ..training.state import init_train_state
     from ..training.yolo import make_yolo_train_step
-    from ._train import init_weights, is_main, log, mean_loss, setup, shard
+    from ._train import init_weights, log, mean_loss, place, save_on_main, setup, shard
 
     device, mesh = setup(args)
     pose = args.keypoints > 0
@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     model = init_weights(YOLOv8(args.variant, args.classes, args.keypoints))
     if args.resume:
         model.load_state_dict(load_for_resume("yolo", args.resume))
-    state = init_train_state(model.to(device), args.lr)
+    state = init_train_state(place(model, mesh, device), args.lr)
     step = make_yolo_train_step(pose=pose, mesh=mesh)
 
     paths, labels, boxes_n, kpts_n, mask = load_dataset(args.images, args.labels, args.max_gt)
@@ -141,8 +141,7 @@ def main(argv=None) -> int:
         log(mesh, f"epoch {epoch}: loss {mean_loss(losses):.4f} "
                   f"({time.perf_counter() - t0:.1f}s)")
 
-    if is_main(mesh):
-        save_yolov8(args.out, state.model)
+    save_on_main(mesh, state.model, lambda m: save_yolov8(args.out, m))
     log(mesh, f"train_yolo: wrote {args.out}")
     return 0
 

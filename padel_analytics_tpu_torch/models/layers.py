@@ -22,14 +22,16 @@ from ..ops.conv3x3 import (
     fold_bn,
     pack_weight,
 )
+from ..parallel.tensor_parallel import refuse_sharded, sharded_call
 
 
 @contextlib.contextmanager
 def batch_stats_over(model: nn.Module, mesh):
     """Inside the block, the train-mode BatchNorms of `model`'s ConvBNs
-    reduce their batch statistics over every rank of `mesh`
+    reduce their batch statistics over every rank of `mesh`'s 'data' axis
     (parallel/mesh.py): the global batch the JAX package's sharded train
-    step sees. mesh None keeps them this process's."""
+    step sees. Over 'model' they are replicated (each model rank holds the
+    gathered channels). mesh None keeps them this process's."""
     convs = [m for m in model.modules() if isinstance(m, ConvBN)]
     for m in convs:
         m.stats_mesh = mesh
@@ -73,6 +75,9 @@ class ConvBN(nn.Module):
     (`batch_norm_train`, momentum `bn_momentum` in Flax's convention: 0.9
     here, 0.97 for YOLOv8, 0.99 for ResNet-50), all under autograd; the
     JAX package trains on XLA's convs too, never through its Pallas kernel.
+    A conv sharded over the mesh's 'model' axis
+    (parallel/tensor_parallel.py) runs on this rank's output channels and
+    is gathered before the BatchNorm, which sees every channel.
 
     In eval mode every stride-1 3x3 block runs as the fused conv + folded-BN
     + act of ops/conv3x3.py: kernel K1 on a CUDA tensor (bf16), the plain
@@ -81,7 +86,8 @@ class ConvBN(nn.Module):
     call. Strided and non-3x3 convs use F.conv2d with symmetric k//2
     padding (torch-style (1, 1) at stride 2, as the JAX package pads them
     explicitly), then the folded BN and the activation in fp32 and one cast
-    to x's dtype."""
+    to x's dtype. Eval mode refuses a sharded conv (ValueError naming
+    `gather_params`)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, act: str = "relu", bn_eps: float = 1e-5,
@@ -97,6 +103,7 @@ class ConvBN(nn.Module):
         self._cache = None
 
     def _folded(self, packed: bool):
+        refuse_sharded(self.conv, "ConvBN in eval mode")
         params = (self.conv.weight, self.bn.weight, self.bn.bias,
                   self.bn.running_mean, self.bn.running_var)
         # Inference tensors carry no version counter; they cannot change
@@ -114,8 +121,8 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y = F.conv2d(x.permute(0, 3, 1, 2), self.conv.weight.to(x.dtype),
-                         stride=self.conv.stride, padding=self.conv.padding)
+            y = sharded_call(self.conv, x.permute(0, 3, 1, 2), lambda x, w, _: F.conv2d(
+                x, w, stride=self.conv.stride, padding=self.conv.padding), dim=1)
             y = batch_norm_train(y, self.bn, self.bn_momentum, self.stats_mesh)
             return _act(y, self.act).permute(0, 2, 3, 1)
         if self.fused:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import sharded_call
 from .layers import ConvBN
 
 IMAGENET_MEAN = (0.485, 0.465, 0.406)  # the reference's 0.465 (sic)
@@ -76,7 +77,9 @@ class ResNet50Regressor(nn.Module):
         for name in self.blocks:
             x = getattr(self, name)(x)
         x = x.mean(dim=(1, 2))  # global average pool
-        x = F.linear(x, self.fc.weight.to(x.dtype), self.fc.bias.to(x.dtype))
+        # Sharded over the mesh's 'model' axis where its weight is: the bias
+        # added after the gather (parallel/tensor_parallel.py).
+        x = sharded_call(self.fc, x, F.linear, dim=-1)
         return x.float()
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import conv3x3_bn_act_packed, conv3x3_bn_act_plain, pack_weight
+from ..parallel.tensor_parallel import sharded_call
 from .layers import ConvBN, max_pool_2x2, upsample_nearest_2x
 
 
@@ -158,9 +159,15 @@ class TrackNet(nn.Module):
         x = self.up_block_1(x, x3)
         x = self.up_block_2(x, x2)
         x = self.up_block_3(x, x1)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.predictor.weight.to(x.dtype),
-                     self.predictor.bias.to(x.dtype))
+        y = sharded_call(self.predictor, x.permute(0, 3, 1, 2), F.conv2d, dim=1)
         return torch.sigmoid(y.float()).permute(0, 2, 3, 1)
+
+
+def _conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` (k=3, padding 1, bias) over (N, C, L) in x's dtype; sharded
+    over the mesh's 'model' axis where its weight is
+    (parallel/tensor_parallel.py: the bias added after the gather)."""
+    return sharded_call(conv, x, lambda x, w, b: F.conv1d(x, w, b, padding=1), dim=1)
 
 
 class _Conv1DBlock(nn.Module):
@@ -171,8 +178,7 @@ class _Conv1DBlock(nn.Module):
         self.conv = nn.Conv1d(in_features, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv1d(x, self.conv.weight.to(x.dtype), self.conv.bias.to(x.dtype), padding=1)
-        return F.leaky_relu(y, 0.01)
+        return F.leaky_relu(_conv1d(self.conv, x), 0.01)
 
 
 class InpaintNet(nn.Module):
@@ -205,9 +211,7 @@ class InpaintNet(nn.Module):
         x = self.up_1(torch.cat([x, x3], dim=1))
         x = self.up_2(torch.cat([x, x2], dim=1))
         x = self.up_3(torch.cat([x, x1], dim=1))
-        y = F.conv1d(x, self.predictor.weight.to(x.dtype), self.predictor.bias.to(x.dtype),
-                     padding=1)
-        return torch.sigmoid(y.float()).permute(0, 2, 1)
+        return torch.sigmoid(_conv1d(self.predictor, x).float()).permute(0, 2, 1)
 
 
 def make_tracknet(seq_len: int = 8, bg_mode: str = "concat",

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import sharded_call
 from .layers import ConvBN, upsample_nearest_2x
 
 # name -> (depth_mult, width_mult, max_channels)
@@ -148,8 +149,9 @@ class _HeadBranch(nn.Module):
 
     def forward(self, x):
         x = self.c1(self.c0(x))
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.proj.weight.to(x.dtype),
-                     self.proj.bias.to(x.dtype))
+        # Sharded over the mesh's 'model' axis where its weight is: the bias
+        # added after the gather (parallel/tensor_parallel.py).
+        y = sharded_call(self.proj, x.permute(0, 3, 1, 2), F.conv2d, dim=1)
         return y.permute(0, 2, 3, 1)
 
 

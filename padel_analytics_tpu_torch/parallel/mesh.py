@@ -1,17 +1,20 @@
-"""The data-parallel mesh: one process per device, joined by a
+"""The (data, model) mesh: one process per device, joined by a
 torch.distributed process group.
 
 Counterpart of ``padel_analytics_tpu/parallel/mesh.py``. The JAX package
 lays its devices out as a ('data', 'model') mesh inside one program; here
 each rank is a process that owns one device (`cuda:LOCAL_RANK`, or the CPU
-where the caller asks for it), and the 'data' axis is the process group
-over them: NCCL between cards, gloo on the CPU. The frame axis of a clip
-splits over it (parallel/sharded_inference.py, `FusedPipeline.run_mesh`).
+where the caller asks for it), NCCL between cards, gloo on the CPU. Rank r
+sits at data index r // model and model index r % model, so a model group
+is `model` neighbouring ranks.
 
-The training apps' `--data-parallel` runs one rank per device over this
-axis too (training/state.py). The 'model' axis (conv-channel tensor
-parallelism, the JAX package's `shard_params_for_tp`) is not ported
-(ROADMAP.md Queue 1 item 12b): `make_mesh(model > 1)` refuses.
+A `Mesh` is this rank's 'data' axis (the ranks at its model index): the
+frame axis of a clip (parallel/sharded_inference.py,
+`FusedPipeline.run_mesh`), a train step's batch, its BatchNorm statistics,
+loss normalizers and gradient sum (training/state.py) split or reduce over
+it. `Mesh.model` is its 'model' axis (the ranks at its data index), over
+which `shard_params_for_tp` splits the conv and dense kernels' output
+channels (parallel/tensor_parallel.py); None when the axis has one rank.
 """
 
 from __future__ import annotations
@@ -53,12 +56,25 @@ def init_distributed(device: torch.device | str = "cuda", backend: Optional[str]
 
 class Mesh(NamedTuple):
     """The 'data' axis: its process group, its size, this process's rank in
-    it, and this rank's device."""
+    it, and this rank's device; and the 'model' axis, a `Mesh` of its own
+    (its `model` None), or None where it has one rank."""
 
     group: dist.ProcessGroup
     size: int
     rank: int
     device: torch.device
+    model: Optional["Mesh"] = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """{'data': size, 'model': size}, as the JAX mesh's `shape`."""
+        return {"data": self.size, "model": 1 if self.model is None else self.model.size}
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this is the mesh's first process (global rank 0), the one
+        that writes a run's files."""
+        return self.rank == 0 and (self.model is None or self.model.rank == 0)
 
     @property
     def _wire(self) -> torch.device:
@@ -67,13 +83,13 @@ class Mesh(NamedTuple):
         nccl = dist.get_backend(self.group) == "nccl"
         return self.device if nccl else torch.device("cpu")
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's `t` (the same shape on each), concatenated along the
-        first axis in rank order, on `t`'s device."""
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's `t` (the same shape on each), concatenated along
+        `dim` in rank order, on `t`'s device."""
         src = t.contiguous().to(self._wire)
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
-        return torch.cat(parts).to(t.device)
+        return torch.cat(parts, dim=dim).to(t.device)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's `t` (the same shape on each), on `t`'s
@@ -119,22 +135,25 @@ class _AllReduceSum(torch.autograd.Function):
 
 def make_mesh(data: int = -1, model: int = 1,
               device: torch.device | str | None = None) -> Mesh:
-    """The 'data' mesh over the default process group: data = -1 takes
-    every rank; otherwise it must equal the group's size.
+    """The (data, model) mesh over the default process group, one rank per
+    device: data * model must equal the group's size (data = -1 takes
+    size // model). With model > 1 every rank makes every data and model
+    group, in one fixed order (all data groups, then all model groups), as
+    `dist.new_group` needs.
 
     device: this rank's device, `cuda:LOCAL_RANK` unless given (LOCAL_RANK
     from torchrun's environment, else the rank). A CUDA device where there
     is no card raises RuntimeError; nothing falls back to the CPU."""
-    if model != 1:
-        raise NotImplementedError(
-            "a 'model' axis (conv-channel tensor parallelism, the JAX package's "
-            "parallel/mesh.py shard_params_for_tp) is not ported (ROADMAP.md Queue 1 item 12b)")
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed() first")
-    group = dist.group.WORLD
-    size, rank = dist.get_world_size(group), dist.get_rank(group)
-    if data not in (-1, size):
-        raise ValueError(f"data={data} but the process group has {size} ranks (one per device)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model < 1 or (data == -1 and world % model):
+        raise ValueError(f"model={model} does not divide the process group's {world} ranks")
+    if data == -1:
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"mesh data={data} x model={model} needs {data * model} ranks, but "
+                         f"the process group has {world} ranks (one per device)")
     if device is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
     device = torch.device(device)
@@ -144,4 +163,12 @@ def make_mesh(data: int = -1, model: int = 1,
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
-    return Mesh(group, size, rank, device)
+    if model == 1:
+        return Mesh(dist.group.WORLD, world, rank, device)
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    groups = [dist.new_group(list(range(m, world, model)), timeout=timeout)
+              for m in range(model)]
+    groups += [dist.new_group(list(range(d * model, (d + 1) * model)), timeout=timeout)
+               for d in range(data)]
+    d, m = divmod(rank, model)
+    return Mesh(groups[m], data, d, device, Mesh(groups[model + d], model, m, device))

@@ -24,8 +24,10 @@ OpenCV is absent raises ImportError when it is constructed.
 With a `mesh` (parallel/mesh.py: one process a device, every rank running
 the same runner over the same clip) the fused pass is
 `FusedPipeline.run_mesh` and every rank gets the same results and
-data_analytics; only rank 0 writes files (the prediction caches, the video,
-data.csv through `write_csv`), the others collect without drawing.
+data_analytics; only global rank 0 writes files (the prediction caches, the
+video, data.csv through `write_csv`), the others collect without drawing. A
+(data, model) mesh splits the frames over 'data' and runs replicated over
+'model'.
 """
 
 from __future__ import annotations
@@ -248,12 +250,13 @@ class TrackingRunner:
     @property
     def is_writer(self) -> bool:
         """Whether this process writes the run's files: always on one
-        device, rank 0 alone under a mesh."""
-        return self.mesh is None or self.mesh.rank == 0
+        device, the mesh's first process alone under a mesh (global rank 0:
+        a (data, model) mesh runs replicated over 'model')."""
+        return self.mesh is None or self.mesh.is_main
 
     def write_csv(self, path: str | Path) -> None:
-        """Write the collected data as the reference's data.csv (rank 0 only
-        under a mesh)."""
+        """Write the collected data as the reference's data.csv (global rank
+        0 only under a mesh)."""
         if self.is_writer:
             self.data_analytics.write_csv(path, self.video_info.fps)
 
@@ -468,8 +471,8 @@ class TrackingRunner:
     def draw_and_collect_data(self) -> None:
         """Render the annotated video with the minimap projections and
         collect the data; with render=False, collect only (and with
-        neither, do nothing). Under a mesh only rank 0 draws; the others
-        collect only."""
+        neither, do nothing). Under a mesh only global rank 0 draws; the
+        others collect only."""
         if not self.render or not self.is_writer:
             if self.data_analytics is not None:
                 self.collect_data_only()

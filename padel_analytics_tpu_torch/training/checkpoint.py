@@ -17,6 +17,12 @@ every family: the ``{'params', 'batch_stats'}`` tree its
 flax_from_state_dict`, no param_dict), which its trackers and apps load.
 `load_for_resume` reads each back, the reference's own files and the JAX
 package's.
+
+A model sharded over the mesh's 'model' axis is saved whole: the apps
+gather its shards on every rank first (`parallel.gather_params`), then
+global rank 0 writes the bytes an unsharded model with the same values
+writes; a save of a sharded model raises ValueError. `--resume` loads the
+whole tree into the unsharded model, which the apps then shard.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..models.convert import (
     save_flax,
 )
 from ..models.yolov8 import REG_MAX
+from ..parallel.tensor_parallel import is_sharded
 
 #: ultralytics' layer index of the YOLOv8 detect / pose head.
 YOLO_HEAD_INDEX = 22
@@ -55,6 +62,15 @@ def _is_flax(path) -> bool:
 
 def _cpu(state_dict) -> dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in state_dict.items()}
+
+
+def _whole(model: nn.Module, path) -> bool:
+    """Refuse a model whose weights are shards; whether `path` is a Flax
+    .msgpack."""
+    if is_sharded(model):
+        raise ValueError(f"saving {path}: the model is sharded over the 'model' axis; call "
+                         "parallel.gather_params(model, mesh) on every rank first")
+    return _is_flax(path)
 
 
 def _save(obj, path) -> None:
@@ -126,7 +142,7 @@ def torchvision_resnet_key(key: str) -> str:
 
 
 def save_tracknet(path, model: nn.Module, seq_len: int, bg_mode: str = "concat") -> None:
-    if _is_flax(path):
+    if _whole(model, path):
         return save_flax(path, model)
     _save({"model": _cpu(model.state_dict()),
            "param_dict": {"model_name": "TrackNet", "seq_len": seq_len, "bg_mode": bg_mode}},
@@ -134,20 +150,20 @@ def save_tracknet(path, model: nn.Module, seq_len: int, bg_mode: str = "concat")
 
 
 def save_inpaintnet(path, model: nn.Module, seq_len: int = 16) -> None:
-    if _is_flax(path):
+    if _whole(model, path):
         return save_flax(path, model)
     _save({"model": inpaintnet_reference_names(_cpu(model.state_dict())),
            "param_dict": {"model_name": "InpaintNet", "seq_len": seq_len}}, path)
 
 
 def save_yolov8(path, model: nn.Module) -> None:
-    if _is_flax(path):
+    if _whole(model, path):
         return save_flax(path, model)
     _save(yolov8_ultralytics_state_dict(_cpu(model.state_dict())), path)
 
 
 def save_resnet(path, model: nn.Module) -> None:
-    if _is_flax(path):
+    if _whole(model, path):
         return save_flax(path, model)
     _save({torchvision_resnet_key(k): v for k, v in _cpu(model.state_dict()).items()}, path)
 

@@ -16,6 +16,15 @@ ranks' gradients (`apply_gradients` all-reduces them) is the global
 gradient, BatchNorm's all-reduced statistics included
 (`models/layers.py::batch_stats_over`). That is the JAX apps' GSPMD
 semantics, where the sharded batch reduces as one.
+
+Tensor parallel (`mesh.model`, parallel/tensor_parallel.py): the model's
+wide kernels hold only this rank's output channels
+(`shard_params_for_tp`, before `init_train_state`, so Adam's moments are
+sharded too); every model rank computes the same loss share. The
+gradients, the normalizers, the loss and the BatchNorm statistics all
+reduce over the 'data' axis alone (the `Mesh` itself): a sharded gradient
+is its shard's, a replicated one is already equal on every model rank, and
+summing over 'model' too would count it `model` times.
 """
 
 from __future__ import annotations
@@ -49,13 +58,14 @@ class TrainState:
 
 
 def init_train_state(model: nn.Module, lr: float = 1e-3) -> TrainState:
-    """`model` in train mode with a fresh Adam over its parameters."""
+    """`model` in train mode with a fresh Adam over its parameters (this
+    rank's shards, once `shard_params_for_tp` has run)."""
     return TrainState(model.train(), adam(model, lr))
 
 
 def global_sum(t: torch.Tensor, mesh=None) -> torch.Tensor:
-    """`t` summed over the mesh's ranks (no gradient: the normalizers are
-    made from targets and masks); `t` itself without a mesh."""
+    """`t` summed over the mesh's 'data' ranks (no gradient: the normalizers
+    are made from targets and masks); `t` itself without a mesh."""
     return t if mesh is None else mesh.all_reduce(t)
 
 
@@ -65,8 +75,9 @@ def apply_gradients(state: TrainState, loss_share: Callable[[], torch.Tensor],
     forward and the loss), backpropagate it, sum the gradients over the
     mesh, take one optimizer step. The forward and the backward run in true
     fp32 (TF32 off: the JAX package trains in fp32, and a card step is held
-    against a CPU step). Returns (state, the global loss as a 0-dim tensor
-    on the model's device)."""
+    against a CPU step). The sum runs over the 'data' axis only (see the
+    module's note on tensor parallelism). Returns (state, the global loss as
+    a 0-dim tensor on the model's device)."""
     state.optimizer.zero_grad(set_to_none=True)
     with no_tf32():
         share = loss_share()

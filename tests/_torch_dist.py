@@ -3,7 +3,7 @@ gloo process group on the CPU and writes its results under a directory the
 parent reads. Imports no JAX (a child imports the port only), so the test
 modules that compare with the JAX package run the JAX side themselves.
 
-    python tests/_torch_dist.py CASE RANK WORLD PORT OUTDIR
+    python tests/_torch_dist.py CASE RANK WORLD PORT OUTDIR [ARGS...]
 
 `spawn` starts the ranks with a free port, one intra-op thread each, and a
 time limit; `sharded_clip` and `MaxTrackNet` are the inputs both sides
@@ -81,9 +81,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(case: str, world: int, out: Path) -> list[Path]:
-    """Run `case` on `world` ranks; returns each rank's output directory.
-    Raises with the ranks' output when one fails or the time runs out."""
+def spawn(case: str, world: int, out: Path, args=()) -> list[Path]:
+    """Run `case` on `world` ranks (with the strings `args` after its mesh
+    and directory); returns each rank's output directory. Raises with the
+    ranks' output when one fails or the time runs out."""
     port = free_port()
     env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     dirs = [out / f"rank{r}" for r in range(world)]
@@ -91,7 +92,8 @@ def spawn(case: str, world: int, out: Path) -> list[Path]:
     for r, d in enumerate(dirs):
         d.mkdir(parents=True, exist_ok=True)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__)), case, str(r), str(world), str(port), str(d)],
+            [sys.executable, str(Path(__file__)), case, str(r), str(world), str(port), str(d),
+             *args],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs = []
     try:
@@ -239,15 +241,29 @@ def train_case(name: str):
 def train_step_result(name: str, mesh=None, rows: slice = slice(None), device="cpu") -> dict:
     """One Adam step (lr 1e-3) of `name` on `rows` of its global batch, on
     `device`: {'loss', 'grad.<param>', 'param.<param>', 'buffer.<name>'} as
-    numpy."""
+    numpy. With a mesh that has a model axis, the model is sharded over it
+    first (`shard_params_for_tp`), and the sharded gradients and
+    parameters are gathered after the step; 'sharded' lists the sharded
+    weights' names."""
+    from padel_analytics_tpu_torch.parallel import gather_params, shard_params_for_tp
+    from padel_analytics_tpu_torch.parallel.tensor_parallel import tp_axis
     from padel_analytics_tpu_torch.training import init_train_state
 
     model, batch, step = train_case(name)
+    tp = mesh is not None and mesh.model is not None
+    if tp:
+        shard_params_for_tp(model, mesh)
     state, loss = step(mesh)(init_train_state(model.to(device), 1e-3), *(
         torch.from_numpy(np.ascontiguousarray(a[rows])).to(device) for a in batch))
+    sharded = sorted(f"{k}.weight" for k, m in model.named_modules() if tp_axis(m) is not None)
     out = {"loss": np.asarray(float(loss))}
     for k, p in state.model.named_parameters():
-        out[f"grad.{k}"] = p.grad.cpu().numpy()
+        g = mesh.model.all_gather(p.grad, 0) if k in sharded else p.grad
+        out[f"grad.{k}"] = g.cpu().numpy()
+    if tp:
+        gather_params(model, mesh)
+        out["sharded"] = np.asarray(sharded, dtype=str)
+    for k, p in state.model.named_parameters():
         out[f"param.{k}"] = p.detach().cpu().numpy()
     for k, v in state.model.named_buffers():
         out[f"buffer.{k}"] = v.cpu().numpy()
@@ -276,26 +292,161 @@ def _train(mesh, out: Path) -> None:
                     + ["--data-parallel", str(mesh.size)])
 
 
+def _tp(mesh, out: Path, *families) -> None:
+    """Each family's step (all, or those named) on the (data, model) mesh:
+    this data rank's shard of the global batch, the model sharded over
+    'model'."""
+    per = TRAIN_BATCH // mesh.size
+    rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    for name in families or TRAIN_FAMILIES:
+        np.savez(out / f"{name}.npz", **train_step_result(name, mesh, rows))
+
+
+def tp_step_results(world: int, root: Path, families=TRAIN_FAMILIES) -> list[dict]:
+    """The 'tp' case on `world` ranks (model 2): each rank's {family: its
+    step results}."""
+    dirs = spawn("tp", world, root / f"w{world}", families)
+    return [{name: dict(np.load(d / f"{name}.npz")) for name in families} for d in dirs]
+
+
+def tracknet_app_argv(data: Path, out: Path, *extra) -> list[str]:
+    """apps.train_tracknet on the rally under `data`: one step, a global
+    batch of 8 windows of 4 frames at 32 x 64 (one step: free-running Adam
+    steps part within a step, tests/_torch_train.py)."""
+    return ["--match-dir", str(data / "match"), "--rallies", "r1", "--epochs", "1", "--batch",
+            "8", "--seq-len", "4", "--height", "32", "--width", "64", "--device", "cpu",
+            "--out", str(out), *extra]
+
+
+def inpaint_app_argv(data: Path, out: Path, *extra) -> list[str]:
+    return ["--match-dir", str(data / "match"), "--rallies", "r1", "--epochs", "1", "--batch",
+            "4", "--seq-len", "8", "--synthetic-gaps", "--img-wh", "160", "90", "--device",
+            "cpu", "--out", str(out), *extra]
+
+
+def court_app_argv(data: Path, out: Path, *extra) -> list[str]:
+    return ["--images", str(data / "court"), "--keypoints", str(data / "court.json"),
+            "--imgsz", "64", "--batch", "4", "--epochs", "1", "--stage-sizes", "1,1,1,1",
+            "--device", "cpu", "--out", str(out), *extra]
+
+
+def train_step_f64_grads(name: str) -> dict:
+    """The one-process step's gradient of `name` in float64 on the CPU (the
+    models keep their own fp32 casts): the yardstick of fp32 gradients,
+    {'grad.<param>': numpy}."""
+    from padel_analytics_tpu_torch.training import init_train_state
+
+    model, batch, step = train_case(name)
+    model = model.double()
+    b = [torch.from_numpy(a).double() if a.dtype == np.float32 else torch.from_numpy(a)
+         for a in batch]
+    step(None)(init_train_state(model, 1e-3), *b)
+    return {f"grad.{k}": p.grad.numpy() for k, p in model.named_parameters()}
+
+
+def _tp_cuda(mesh, out: Path) -> None:
+    """TrackNet's sharded step with both ranks on the card (data 1 x
+    model 2, gloo)."""
+    np.savez(out / "tracknet.npz", **train_step_result("tracknet", mesh, device=mesh.device))
+
+
+def write_app_data(root: Path) -> None:
+    """The train apps' datasets under `root`: a 14-frame 160 x 90 rally
+    (match/frame/r1, match/csv/r1_ball.csv), 4 YOLO images with one box
+    each (images, labels) and 4 court frames with 12 keypoints (court,
+    court.json)."""
+    import csv
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    fd = root / "match" / "frame" / "r1"
+    fd.mkdir(parents=True)
+    (root / "match" / "csv").mkdir()
+    rows = []
+    for i in range(14):
+        img = rng.integers(55, 65, (90, 160, 3), dtype=np.uint8)
+        x, y, visible = 10 + i * 9, 40 + int(6 * np.sin(i)), i % 5 != 4
+        if visible:
+            img[y - 2: y + 3, x - 2: x + 3] = (250, 250, 120)
+        Image.fromarray(img).save(fd / f"{i}.png")
+        rows.append({"Frame": i, "X": x * visible, "Y": y * visible, "Visibility": int(visible)})
+    with open(root / "match" / "csv" / "r1_ball.csv", "w", newline="") as f:
+        wtr = csv.DictWriter(f, fieldnames=["Frame", "X", "Y", "Visibility"])
+        wtr.writeheader()
+        wtr.writerows(rows)
+    for d in ("images", "labels", "court"):
+        (root / d).mkdir()
+    kps = {}
+    for i in range(4):
+        img = rng.integers(20, 50, (64, 64, 3), dtype=np.uint8)
+        x0, y0 = 8 + 6 * i, 10 + 4 * i
+        img[y0: y0 + 30, x0: x0 + 24] = 220
+        Image.fromarray(img).save(root / "images" / f"im{i}.png")
+        (root / "labels" / f"im{i}.txt").write_text(
+            f"0 {(x0 + 12) / 64} {(y0 + 15) / 64} {24 / 64} {30 / 64}\n")
+        Image.fromarray(rng.integers(20, 60, (60, 80, 3), dtype=np.uint8)).save(
+            root / "court" / f"f{i}.png")
+        kps[f"f{i}.png"] = [[10.0 + 5 * k + i, 50.0 - 3 * k] for k in range(12)]
+    (root / "court.json").write_text(json.dumps(kps))
+
+
+#: The tensor-parallel app runs: (app module name, argv maker, output file).
+TP_APPS = [("train_tracknet", tracknet_app_argv, "tracknet.pt"),
+           ("train_inpaintnet", inpaint_app_argv, "inpaint.pt"),
+           ("train_court", court_app_argv, "court.msgpack"),
+           ("train_yolo", train_yolo_argv, "det.pt")]
+
+
+def _tp_apps(mesh, out: Path) -> None:
+    """The four train apps with --model-parallel over the group, on the
+    datasets the parent wrote beside the ranks' directories (rank 0 writes
+    each file); train_tracknet --resume of its own file with no epoch; then
+    TrackingRunner(mesh=...) with the decisive fakes (the `runner` case)."""
+    import importlib
+
+    data = out.parent / "data"
+    mp = ["--model-parallel", str(mesh.shape["model"])]
+    for app, argv, name in TP_APPS:
+        importlib.import_module(f"padel_analytics_tpu_torch.apps.{app}").main(
+            argv(data, out / name) + mp)
+    from padel_analytics_tpu_torch.apps import train_tracknet
+
+    # Every rank reads rank 0's file.
+    src = out.parent / "rank0" / "tracknet.pt"
+    torch.distributed.barrier()
+    train_tracknet.main(tracknet_app_argv(data, out / "resumed.pt", "--resume", str(src),
+                                          "--epochs", "0") + mp)
+    with torch.inference_mode():
+        _runner(mesh, out)
+
+
 CASES = {"sharded": _sharded, "fused": _fused, "runner": _runner, "ball": _ball,
-         "train": _train}
+         "train": _train, "tp": _tp, "tp_apps": _tp_apps, "tp_cuda": _tp_cuda}
 #: The cases that train: autograd on (the others run under inference_mode).
-TRAINING = {"train"}
+TRAINING = {"train", "tp", "tp_apps", "tp_cuda"}
+#: The cases on a (data, model) mesh: their model axis's size.
+MODEL_AXIS = {"tp": 2, "tp_apps": 2, "tp_cuda": 2}
+#: The cases whose ranks all sit on the card (gloo: NCCL refuses two ranks
+#: on one card).
+ON_CARD = {"tp_cuda"}
 
 
-def main(case: str, rank: int, world: int, port: int, out: str) -> None:
+def main(case: str, rank: int, world: int, port: int, out: str, *args: str) -> None:
     torch.set_num_threads(1)
-    init_distributed("cpu", rank=rank, world_size=world, timeout_s=TIMEOUT_S,
+    device = "cuda:0" if case in ON_CARD else "cpu"
+    init_distributed(device, backend="gloo", rank=rank, world_size=world, timeout_s=TIMEOUT_S,
                      init_method=f"tcp://127.0.0.1:{port}")
     try:
-        mesh = make_mesh(data=world, device="cpu")
+        mesh = make_mesh(model=MODEL_AXIS.get(case, 1), device=device)
         if case in TRAINING:
-            CASES[case](mesh, Path(out))
+            CASES[case](mesh, Path(out), *args)
         else:
             with torch.inference_mode():
-                CASES[case](mesh, Path(out))
+                CASES[case](mesh, Path(out), *args)
     finally:
         torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), *sys.argv[5:])

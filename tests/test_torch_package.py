@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
             "trackers/velocity_in_time.py", "analytics/velocity_estimator.py",
             "core/checkpoint.py", "models/convert.py", "apps/convert_weights.py",
             "apps/compare_predictions.py", "apps/validate_weights.py",
-            "apps/streamlit_app.py"} <= scanned
+            "apps/streamlit_app.py", "parallel/tensor_parallel.py",
+            "core/profiling.py"} <= scanned
     bad = [
         f"{path.relative_to(PKG.parent)}:{node.lineno} imports {name}"
         for path in files

@@ -158,7 +158,8 @@ def test_mesh_of_one_rank(world_of_one):
     t = torch.arange(6).reshape(3, 2)
     # One rank: the ring is the identity (no transfer) and the gather a copy.
     assert mesh.ring_shift(t, 1) is t and torch.equal(mesh.all_gather(t), t)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    # A (data, model) mesh needs data * model ranks, one a device.
+    with pytest.raises(ValueError, match="data=1 x model=2 needs 2 ranks.*has 1 ranks"):
         make_mesh(data=1, model=2, device="cpu")
     with pytest.raises(ValueError, match="1 ranks"):
         make_mesh(data=2, device="cpu")

@@ -15,10 +15,11 @@
 - images decode with Pillow where OpenCV is absent;
 - --resume reads each file back (with --epochs 0 the written weights equal
   the read ones); --out / --resume take the JAX apps' .msgpack too (the JAX
-  package's load_variables reads what is written); --model-parallel 2 raises NotImplementedError
-  naming ROADMAP item 12b; --data-parallel 2 without a process group
-  raises; with no --device the apps take cuda, and raise where there is no
-  card (no CPU fallback).
+  package's load_variables reads what is written); --model-parallel 2 and
+  --data-parallel 2 without a process group raise ValueError (the model
+  axis on gloo ranks: tests/test_torch_tensor_parallel_apps.py); with no
+  --device the apps take cuda, and raise where there is no card (no CPU
+  fallback).
 """
 
 import csv
@@ -232,7 +233,7 @@ def test_msgpack_resume_refused(rally, tmp_path):
 
 
 def test_model_parallel_and_data_parallel_refused(rally, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(ValueError, match="--model-parallel 2 needs that many processes"):
         train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--model-parallel", "2"))
     with pytest.raises(ValueError, match="--data-parallel 2"):
         train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--data-parallel", "2"))
