@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's ball, players, pose, fused, collect,
 model-court, multi-device and training paths, its CLI, its weights formats,
-its validation app and the mesh's model axis on one NVIDIA GPU.
+its validation app, the mesh's model axis and the training and quality
+harness on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
@@ -193,7 +194,27 @@ is printed):
    (b) apps.train_tracknet --model-parallel 2 on the two ranks for one step
    on a 15-frame 1024x576 rally against --model-parallel 1, its gathered
    .pt served by BallTracker on the card through K1 and K2 (launches
-   counted: the kernels line's 'model_axis').
+   counted: the kernels line's 'model_axis');
+20. the training and quality harness (padel_analytics_tpu_torch/tools),
+   trained in fp32 (TF32 off) and served in bf16, its six demos side by
+   side in processes of their own (their steps are bound by the host's
+   launches): (d) the scenes' sha256
+   digests equal to the CPU's (tests/_torch_tools_cases.py), K1 at every
+   shape the demos launch (TrackNet 48x80 at batch 1 and 8, YOLOv8n detect
+   and pose at the demos' inputs, 78 shapes, the pose keypoint branch's
+   39 channels included) within phase 3's bound, K2 at 48x80 bit-equal at
+   both cluster sizes on blobs, a dense mask and the trained TrackNet's
+   heatmaps; (a) the four convergence demos at the JAX tests' budgets and
+   bounds (tests/test_convergence_demo.py; the stride demo at 120 steps),
+   the launch counters zeroed before each demo and read after it (training
+   launches neither kernel), the same weights served in fp32 on the CPU
+   beside the bf16 rows; (b) derived_quality at scale 1 (300 detector and
+   300 pose steps) with the five invariants of tests/test_derived_quality.py,
+   its parity and fast configs served in fp32 on the CPU beside; (c) at scale 5, half production (source
+   960x540, wire 480, pose 640 -> 320, det letterbox 320): the four configs
+   printed, the parity config held to localize; (f) the trained TrackNet
+   and YOLOv8n kept under padel_analytics_tpu_torch/_build/tools/ (the
+   kernels line's 'tools_*' paths).
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
@@ -277,7 +298,7 @@ from padel_analytics_tpu_torch.training import inpaintnet as tinp
 from padel_analytics_tpu_torch.training import resnet_court as tcourt
 from padel_analytics_tpu_torch.training import tracknet as ttn
 from padel_analytics_tpu_torch.training import yolo as tyolo
-from padel_analytics_tpu_torch.training.checkpoint import load_for_resume
+from padel_analytics_tpu_torch.training.checkpoint import load_for_resume, save_tracknet, save_yolov8
 from padel_analytics_tpu_torch.trackers import fused as fused_mod
 from padel_analytics_tpu_torch.trackers.fused import PACK_THREADS
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
@@ -287,6 +308,7 @@ from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
 # can change a cache) are the port's tests' own; that module imports no JAX.
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from _torch_fused_cases import BrightTrackNet, CellDetector  # noqa: E402
+import _torch_tools_cases as tools_cases  # noqa: E402
 
 # TrackNet at 288x512: (Cin, Cout, H, W) of its 17 stride-1 3x3 ConvBNs, in
 # call order; 11 distinct shapes.
@@ -484,9 +506,9 @@ def _k1_shape(dev, g, cin, cout, h, w, act, batch) -> dict:
             "bound_ms": bound_ms, "ops_ms": ops_ms, "max_err": max_err}
 
 
-def _trace(model, h: int, w: int, select, record) -> list:
+def _trace(model, h: int, w: int, select, record, cin: int = 3) -> list:
     """record(module, input) of every module that `select` picks, in call
-    order, over one forward of `model` on a (1, h, w, 3) input: a copy of
+    order, over one forward of `model` on a (1, h, w, cin) input: a copy of
     the model runs on the meta device (shapes only, nothing computed)."""
     model = copy.deepcopy(model).to("meta").eval()
     out = []
@@ -494,14 +516,14 @@ def _trace(model, h: int, w: int, select, record) -> list:
         if select(m):
             m.register_forward_pre_hook(lambda mod, args: out.append(record(mod, args[0])))
     with torch.no_grad():
-        model(torch.empty((1, h, w, 3), device="meta"))
+        model(torch.empty((1, h, w, cin), device="meta"))
     return out
 
 
-def k1_call_shapes(model, h: int, w: int) -> list[tuple[int, int, int, int]]:
+def k1_call_shapes(model, h: int, w: int, cin: int = 3) -> list[tuple[int, int, int, int]]:
     """(Cin, Cout, H, W) of every K1 launch of one forward, in call order."""
     return _trace(model, h, w, lambda m: isinstance(m, ConvBN) and m.fused,
-                  lambda m, x: (x.shape[-1], m.conv.out_channels, *x.shape[1:3]))
+                  lambda m, x: (x.shape[-1], m.conv.out_channels, *x.shape[1:3]), cin)
 
 
 def c2f_split_shapes(model, h: int, w: int) -> list[tuple[int, int, int]]:
@@ -2063,9 +2085,8 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _spawn(target, world: int, *args, timeout: float = 900) -> None:
-    """Run target(rank, port, *args) in `world` spawned processes; raises
-    unless every one exits 0 (none outlives the call)."""
+def _start(target, world: int, *args) -> list:
+    """target(rank, port, *args) started in `world` spawned processes."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -2073,14 +2094,30 @@ def _spawn(target, world: int, *args, timeout: float = 900) -> None:
     procs = [ctx.Process(target=target, args=(r, port, *args)) for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def _wait(procs: list, timeout: float = 900) -> list[int]:
+    """Wait for `procs` (none outlives the call); their exit codes."""
     for p in procs:
         p.join(timeout=timeout)
     for p in procs:
         if p.is_alive():
             p.kill()
             p.join()
-    check(all(p.exitcode == 0 for p in procs), f"{target.__name__}: exit codes "
-                                               f"{[p.exitcode for p in procs]}")
+    return [p.exitcode for p in procs]
+
+
+def _join(procs: list, what: str, timeout: float = 900) -> None:
+    """Wait for `procs`; raises unless every one exits 0."""
+    codes = _wait(procs, timeout)
+    check(all(c == 0 for c in codes), f"{what}: exit codes {codes}")
+
+
+def _spawn(target, world: int, *args, timeout: float = 900) -> None:
+    """Run target(rank, port, *args) in `world` spawned processes; raises
+    unless every one exits 0 (none outlives the call)."""
+    _join(_start(target, world, *args), target.__name__, timeout)
 
 
 def _run_files(trackers, clip, out: Path, **kwargs) -> dict[str, bytes]:
@@ -3303,6 +3340,331 @@ def phase_model_axis_cards(world: int, smi: str) -> None:
           f"MiB vs {want['bytes'] / 2**20:.1f}")
 
 
+# ------------------------------------------- phase 20: the training and quality harness
+
+#: The JAX tests' budgets (tests/test_convergence_demo.py) but the stride
+#: demo's: TrackNet (steps, frames), the stride demo's, InpaintNet's and
+#: YOLOv8n's steps. The stride demo takes 120 steps, not 60: from the port's
+#: seeded start its nonoverlap row reached 0.875 within 4 px at 60 steps
+#: (the bound is 0.9), 1.0 at 120.
+TOOLS_TRACKNET, TOOLS_STRIDE = (60, 72), (120, 96)
+TOOLS_INPAINT_STEPS, TOOLS_YOLO_STEPS = 600, 150
+#: derived_quality's (det, pose) steps at scale 1 and at scale 5, half
+#: production (source 960x540, wire 480, pose 640 -> 320, det letterbox 320).
+#: Both take 300, not the JAX test's 150 and 200: from the port's seeded
+#: start 150 detector steps left the parity config at 0.31 detect rate at
+#: scale 1 and 0.375 at scale 5 (the bound is 0.3), 300 at 0.63-1.0; 200
+#: pose steps left pose@half's match rate at 0.375 on the card (the bound is
+#: 0.4), and at 0.28-0.42 on the CPU from three seeds, 300 at 0.52-0.99.
+DERIVED_STEPS = {1: (300, 300), 5: (300, 300)}
+#: The demos' TrackNet (48x80, seq_len 8) and its batches: one window a call
+#: in the convergence evaluation, 8 in BallTracker and the fused pipeline.
+TOOLS_HW, TOOLS_SEQ = (48, 80), 8
+#: Where the trained TrackNet and YOLOv8n are kept for later reuse.
+TOOLS_WEIGHTS = _build.BUILD_DIR / "tools"
+
+
+def _tool_launches() -> dict:
+    return {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+
+
+def _reset_tool_launches() -> None:
+    conv3x3.reset_launches()
+    heatmap.reset_launches()
+
+
+def _k1_check(dev, g, cin: int, cout: int, h: int, w: int, act: str, batch: int) -> float:
+    """K1 at one shape on random operands against its plain version, within
+    phase 3's bound (2 bf16 ulp + 1e-3); returns the max abs error."""
+    x = torch.randn((batch, h, w, cin), device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / math.sqrt(9 * cin)
+    scale = torch.rand(cout, device=dev, generator=g) + 0.5
+    bias = torch.randn(cout, device=dev, generator=g) * 0.1
+    got = conv3x3.conv3x3_bn_act_packed(x, conv3x3.pack_weight(wt), scale, bias, act)
+    ref = conv3x3.conv3x3_bn_act_plain(x.float(), wt.to(torch.bfloat16).float(), scale, bias, act)
+    err = (got.float() - ref).abs()
+    check(bool(torch.all(err <= K1_RTOL * ref.abs() + K1_ATOL)),
+          f"K1 {cin}->{cout} @{h}x{w} B={batch} {act} beyond its bf16 bound "
+          f"(max err {float(err.max())})")
+    return float(err.max())
+
+
+def tools_k1_shapes(dev) -> float:
+    """Every K1 shape the demos launch (traced from the models on the meta
+    device at each input and batch the demos serve), checked against the
+    plain version; returns the largest error."""
+    from padel_analytics_tpu_torch.tools.derived_quality import Geometry
+
+    tracknet, in_dim = make_tracknet(TOOLS_SEQ, "concat")
+    det, pose = YOLOv8("n", 1), YOLOv8("n", 1, 13)
+    calls = [("TrackNet", tracknet, TOOLS_HW, in_dim, "relu", (1, 8)),
+             ("YOLOv8n detect", det, (64, 64), 3, "silu", (8,))]
+    for scale in (1, 5):
+        geo = Geometry.at(scale)
+        lb = resize.letterbox_plan(geo.src_hw, geo.det)
+        calls.append(("YOLOv8n detect", det, (lb.out_h, lb.out_w), 3, "silu", (8,)))
+        for size in (geo.pose_full, geo.pose_fast):
+            calls.append(("YOLOv8n-pose", pose, (size, size), 3, "silu", (8,)))
+    g = torch.Generator(device=dev).manual_seed(20)
+    seen, worst, lines = set(), 0.0, []
+    for label, model, hw, cin, act, batches in calls:
+        shapes = k1_call_shapes(model, *hw, cin)
+        new = 0
+        for batch in batches:
+            for s in shapes:
+                if (s, act, batch) not in seen:
+                    seen.add((s, act, batch))
+                    worst = max(worst, _k1_check(dev, g, *s, act, batch))
+                    new += 1
+        lines.append(f"{label} @{hw[0]}x{hw[1]} B={'/'.join(map(str, batches))}: {len(shapes)} "
+                     f"launches a forward, {new} new shapes")
+    print(f"tools K1: {len(seen)} (shape, act, batch) within the bf16 bound of the plain "
+          f"version, max abs err {worst:.3g}; " + "; ".join(lines))
+    return worst
+
+
+def tools_k2(dev, model) -> None:
+    """K2 at 48x80 bit-equal to the plain version at both cluster sizes
+    (the plan's choice printed): blobs with an empty map and a tie, uniform
+    masks, and the trained TrackNet's own heatmaps of one window."""
+    h, w = TOOLS_HW
+    plans = {c: heatmap.cc_plan(h, w, c) for c in heatmap.CLUSTER_SIZES}
+    rng = np.random.default_rng(20)
+    ys, xs = np.mgrid[0:h, 0:w]
+    blobs = np.zeros((TOOLS_SEQ, h, w), np.float32)
+    for i in range(TOOLS_SEQ - 2):
+        for _ in range(rng.integers(1, 4)):
+            cy, cx, s = rng.integers(2, h - 2), rng.integers(2, w - 2), rng.uniform(1.0, 4.0)
+            blobs[i] += np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * s * s))
+    blobs[-1, 5:8, 5:8] = blobs[-1, 30:33, 60:63] = 1.0  # equal areas (the tie); [-2] empty
+    x = torch.from_numpy(np.concatenate(
+        [np.full((h, w, 3), 45.0)] + [rng.uniform(40, 60, (h, w, 3)) for _ in range(TOOLS_SEQ)],
+        -1)[None].astype(np.float32) / 255).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        model.eval()
+        trained = model(x)[0].permute(2, 0, 1).float()
+        model.train()
+    for name, hms in (("blobs (empty map and tie included)", torch.from_numpy(blobs).to(dev)),
+                      ("uniform mask 50%", torch.from_numpy(
+                          (rng.random((TOOLS_SEQ, h, w)) < 0.5).astype(np.float32)).to(dev)),
+                      ("the trained TrackNet's heatmaps", trained)):
+        _k2_case(f"{name} (tools)", hms, plans)
+    print(f"K2 plan's cluster size at {h}x{w}: {heatmap.cc_plan(h, w).cluster}")
+
+
+def _derived_invariants(grid: dict) -> None:
+    """The five invariants of tests/test_derived_quality.py at scale 1."""
+    parity, fast = grid["parity"], grid["fast"]
+    dfp, half = grid["derived_fullpose"], grid["i420_halfpose"]
+    check(parity["kpt_px"] < 10.0 and parity["detect_rate"] >= 0.3
+          and parity["pose_match_rate"] >= 0.9, f"derived: parity does not localize: {parity}")
+    check(dfp["kpt_px"] <= parity["kpt_px"] + 2.0 and dfp["pose_match_rate"] >= 0.9,
+          f"derived: the derived ingest costs pose: {parity} vs {dfp}")
+    check(fast["detect_rate"] >= parity["detect_rate"] - 0.25
+          and fast["mean_iou"] >= parity["mean_iou"] - 0.10,
+          f"derived: detection cost beyond its bound: {parity} vs {fast}")
+    check(fast["pose_match_rate"] >= 0.4 and fast["kpt_px"] <= parity["kpt_px"] + 10.0,
+          f"derived: pose@half cost beyond its bound: {parity} vs {fast}")
+    check(abs(fast["kpt_px"] - half["kpt_px"]) <= 3.0
+          and abs(fast["pose_match_rate"] - half["pose_match_rate"]) <= 0.15
+          and half["detect_rate"] == parity["detect_rate"],
+          f"derived: the axes interact: {fast} vs {half}, {parity}")
+
+
+def _fmt(d: dict) -> str:
+    return "{" + ", ".join(f"{k} {v:.4f}" for k, v in d.items()) + "}"
+
+
+def _tools_convergence(dev) -> dict:
+    """TrackNet convergence: 9 windows of 8, each 17 K1 launches and one K2,
+    before and after training; K2 at 48x80 on the trained model after."""
+    from padel_analytics_tpu_torch.tools import convergence
+
+    steps, n = TOOLS_TRACKNET
+    _reset_tool_launches()
+    out = convergence.run_demo(steps=steps, n=n, device=dev, verbose=False)
+    launches = _tool_launches()
+    b, a, losses = out["before"], out["after"], out["losses"]
+    cpu = convergence.evaluate(copy.deepcopy(out["model"]).cpu(), out["clip"], TOOLS_SEQ)
+    print(f"tools convergence: TrackNet {TOOLS_HW[0]}x{TOOLS_HW[1]}, {steps} steps on {n} frames "
+          f"({out['step_ms']:.2f} ms a step, {out['wall_s']:.1f} s): before {_fmt(b)}; after, "
+          f"bf16 on the card {_fmt(a)}, fp32 on the CPU {_fmt(cpu)}; loss first-5 "
+          f"{np.mean(losses[:5]):.5f} -> last-5 {np.mean(losses[-5:]):.5f}; launches {launches}")
+    windows = n // TOOLS_SEQ
+    check(launches == {"conv3x3_bn_act": 2 * 17 * windows, "heatmap_cc": 2 * windows},
+          f"tools convergence: launches {launches}")
+    check(a["within_4px"] >= 0.8 and a["mean_px"] < b["mean_px"] / 3
+          and np.mean(losses[-5:]) < np.mean(losses[:5]) / 10,
+          f"tools convergence: not converged: {b} -> {a}")
+    save_tracknet(TOOLS_WEIGHTS / "tracknet_48x80.pt", out["model"], TOOLS_SEQ)
+    tools_k2(dev, out["model"])
+    return launches
+
+
+def _tools_stride(dev) -> dict:
+    from padel_analytics_tpu_torch.tools import stride_quality
+
+    steps, n = TOOLS_STRIDE
+    _reset_tool_launches()
+    out = stride_quality.run_demo(steps=steps, n=n, device=dev, verbose=False)
+    launches = _tool_launches()
+    r1, r8 = out["stride1"], out["nonoverlap"]
+    cpu_model = copy.deepcopy(out["model"]).cpu()
+    c1, c8 = (stride_quality._tracker_eval(out["clip"], cpu_model, s, TOOLS_SEQ, *TOOLS_HW)
+              for s in (1, TOOLS_SEQ))
+    print(f"tools stride: {steps} steps on {n} frames ({out['step_ms']:.2f} ms a step, "
+          f"{out['wall_s']:.1f} s); BallTracker bf16 stride 1 {_fmt(r1)}, nonoverlap {_fmt(r8)}; "
+          f"fp32 on the CPU stride 1 {_fmt(c1)}, nonoverlap {_fmt(c8)}; launches {launches}")
+    check(min(launches.values()) > 0, "tools stride: a kernel did not launch")
+    check(r1["within_4px"] >= 0.9 and r8["within_4px"] >= 0.9
+          and r8["mean_px"] <= r1["mean_px"] + 2.0, f"tools stride: beyond the bounds: {r1}, {r8}")
+    return launches
+
+
+def _tools_inpaint(dev) -> dict:
+    from padel_analytics_tpu_torch.tools import inpaint_convergence
+
+    _reset_tool_launches()
+    out = inpaint_convergence.run_demo(steps=TOOLS_INPAINT_STEPS, device=dev, verbose=False)
+    launches = _tool_launches()
+    cpu = inpaint_convergence.masked_px_error(copy.deepcopy(out["model"]).cpu(), out["eval_rally"])
+    print(f"tools inpaint: InpaintNet {TOOLS_INPAINT_STEPS} steps ({out['step_ms']:.2f} ms a step, "
+          f"{out['wall_s']:.1f} s): masked px error before {out['before_px']:.2f}, after bf16 on "
+          f"the card {out['after_px']:.2f}, fp32 on the CPU {cpu:.2f}; launches {launches} (no "
+          f"kernel on this path)")
+    check(out["before_px"] > 180 and out["after_px"] < 120
+          and out["after_px"] < out["before_px"] / 3,
+          f"tools inpaint: not converged: {out['before_px']} -> {out['after_px']}")
+    return launches
+
+
+def _tools_yolo(dev) -> dict:
+    from padel_analytics_tpu_torch.tools import yolo_convergence
+
+    _reset_tool_launches()
+    out = yolo_convergence.run_demo(steps=TOOLS_YOLO_STEPS, device=dev, verbose=False)
+    launches = _tool_launches()
+    b, a, losses = out["before"], out["after"], out["losses"]
+    per_forward = len(k1_call_shapes(YOLOv8("n", 1), *yolo_convergence.HW))
+    cpu = yolo_convergence.evaluate_map(copy.deepcopy(out["model"]).cpu(), *out["eval"])
+    print(f"tools yolo: YOLOv8n detect 64x64, {TOOLS_YOLO_STEPS} steps ({out['step_ms']:.2f} ms a "
+          f"step, {out['wall_s']:.1f} s): before {_fmt(b)}; after, bf16 on the card {_fmt(a)}, "
+          f"fp32 on the CPU {_fmt(cpu)}; loss first-5 {np.mean(losses[:5]):.3f} -> last-5 "
+          f"{np.mean(losses[-5:]):.3f}; launches {launches}")
+    check(launches["conv3x3_bn_act"] == 2 * per_forward,
+          f"tools yolo: K1 launches {launches}, {per_forward} a forward")
+    check(b["map50"] < 0.2 and a["map50"] >= 0.6
+          and np.mean(losses[-5:]) < np.mean(losses[:5]) / 3,
+          f"tools yolo: not converged: {b} -> {a}")
+    save_yolov8(TOOLS_WEIGHTS / "yolov8n_det_64.pt", out["model"])
+    return launches
+
+
+def _tools_derived(dev, scale: int) -> dict:
+    """derived_quality at `scale` with every config; at scale 1 the five
+    invariants and the parity and fast configs served in fp32 on the CPU
+    beside, at scale 5 the parity config held to localize."""
+    from padel_analytics_tpu_torch.tools import derived_quality as dq
+
+    det_steps, pose_steps = DERIVED_STEPS[scale]
+    _reset_tool_launches()
+    out = dq.run_demo(det_steps=det_steps, pose_steps=pose_steps, isolate=True, scale=scale,
+                      device=dev, verbose=False)
+    launches = _tool_launches()
+    grid, geo = out["grid"], out["geometry"]
+    print(f"tools derived scale {scale} (source {geo.src_hw[1]}x{geo.src_hw[0]}, wire "
+          f"{geo.wire}, pose {geo.pose_full} -> {geo.pose_fast}, det letterbox {geo.det}): "
+          f"det {det_steps} steps ({out['det_step_ms']:.2f} ms a step, final loss "
+          f"{out['det_loss']:.3f}), pose {pose_steps} ({out['pose_step_ms']:.2f} ms, "
+          f"{out['pose_loss']:.3f}), {out['wall_s']:.1f} s; launches {launches}")
+    for name, row in grid.items():
+        print(f"  {name} bf16 on the card: {_fmt(row)}")
+    check(min(launches.values()) > 0, f"tools derived scale {scale}: a kernel did not launch")
+    if scale == 1:
+        cpu = dq.serve_grid(copy.deepcopy(out["det"]).cpu(), copy.deepcopy(out["pose"]).cpu(),
+                            geo, out["eval"], dq.eval_jobs(geo))
+        for name, row in cpu.items():
+            print(f"  {name} fp32 on the CPU: {_fmt(row)}")
+        _derived_invariants(grid)
+    else:
+        parity = grid["parity"]
+        check(parity["detect_rate"] >= 0.3 and parity["pose_match_rate"] >= 0.9,
+              f"tools derived scale {scale}: the parity config does not localize: {parity}")
+    return launches
+
+
+#: Phase 20's demos, each in a process of its own: they are bound by the
+#: host's kernel launches (the card is mostly idle), so they run side by
+#: side, on two CPU threads each.
+TOOLS_JOBS = {
+    "tools_convergence": _tools_convergence,
+    "tools_stride": _tools_stride,
+    "tools_inpaint": _tools_inpaint,
+    "tools_yolo": _tools_yolo,
+    "tools_derived_scale1": functools.partial(_tools_derived, scale=1),
+    "tools_derived_scale5": functools.partial(_tools_derived, scale=5),
+}
+
+
+def _tools_job(rank: int, port: int, out: str) -> None:
+    """One of TOOLS_JOBS on the card: its printed lines, its launches and
+    any failure's traceback written to out/<name>.json for the parent to
+    print; a failure then raises on (the process exits non-zero)."""
+    import traceback
+
+    name = list(TOOLS_JOBS)[rank]
+    torch.set_num_threads(2)
+    buf, rec = io.StringIO(), {}
+    try:
+        with contextlib.redirect_stdout(buf):
+            rec["launches"] = TOOLS_JOBS[name](torch.device("cuda", 0))
+    except BaseException:
+        rec["error"] = traceback.format_exc()
+        raise
+    finally:
+        rec["log"] = buf.getvalue()
+        Path(out, f"{name}.json").write_text(json.dumps(rec))
+
+
+def phase_tools(smi: str) -> dict:
+    """20: the training and quality harness (padel_analytics_tpu_torch/tools)
+    on the card. The demos (TOOLS_JOBS) run in processes of their own while
+    this one checks (d): the scene digests against the CPU's and every K1
+    shape of the demos; each demo's process zeroes the launch counters
+    before it and reads them after it (training launches neither kernel:
+    train-mode ConvBN is F.conv2d, so the counts are its served passes'),
+    holds its bounds and keeps its weights (f). Then every demo's lines are
+    printed in TOOLS_JOBS' order, and a failed demo or check raises."""
+    from padel_analytics_tpu_torch.tools._common import require_cv2
+
+    t0 = time.perf_counter()
+    cv2 = require_cv2()
+    TOOLS_WEIGHTS.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = _start(_tools_job, len(TOOLS_JOBS), tmp)
+        try:
+            digests = tools_cases.scene_digests()
+            max_err = tools_k1_shapes(torch.device("cuda", 0))
+        finally:
+            codes = _wait(procs, timeout=600)
+        recs = {}
+        for name in TOOLS_JOBS:
+            path = Path(tmp, f"{name}.json")
+            recs[name] = json.loads(path.read_text()) if path.exists() else {
+                "log": "", "error": "the process wrote no record"}
+    differ = {k: v for k, v in digests.items() if v != tools_cases.SCENE_DIGESTS[k]}
+    check(not differ, f"tools: scene digests differ from the CPU's: {differ}")
+    print(f"tools: the {len(digests)} scene digests equal the CPU's (cv2 {cv2.__version__}, "
+          f"numpy {np.__version__})")
+    for name, rec in recs.items():
+        print(rec["log"], end="")
+    for (name, rec), code in zip(recs.items(), codes):
+        check(code == 0 and "error" not in rec, f"{name}: exit code {code}; {rec.get('error')}")
+    print(f"tools: phase 20 took {time.perf_counter() - t0:.1f} s, its {len(TOOLS_JOBS)} demos "
+          f"side by side; {smi}")
+    return {"launches_by_path": {name: rec["launches"] for name, rec in recs.items()},
+            "max_abs_err": max_err}
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -3356,6 +3718,9 @@ def main() -> None:
     by_path.update(phase_train_serve(smi))
     by_path["validate"] = phase_weights_validate(smi)
     by_path["model_axis"] = phase_model_axis(dev, smi)
+    tools = phase_tools(smi)
+    by_path.update(tools["launches_by_path"])
+    k1["max_abs_err"] = max(k1["max_abs_err"], tools["max_abs_err"])
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

@@ -151,18 +151,39 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
 
 
-def lecun_normal_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from `generator`: N(0, 1/fan_in) conv and linear
-    weights, zero biases, identity BatchNorm (the JAX package's init,
-    untruncated)."""
+def _fan_in_init_(model: nn.Module, sample) -> nn.Module:
+    """Conv and linear weights `sample(shape) / sqrt(fan_in)`, zero biases,
+    identity BatchNorm."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               / math.sqrt(fan_in))
+                m.weight.copy_(sample(m.weight.shape) / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
     return model
+
+
+def lecun_normal_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from `generator`: N(0, 1/fan_in) conv and linear
+    weights, zero biases, identity BatchNorm (the JAX package's init,
+    untruncated)."""
+    return _fan_in_init_(model, lambda shape: torch.randn(shape, generator=generator))
+
+
+#: The standard deviation of a unit normal truncated at +-2.
+_TRUNC2_STD = 0.87962566103423978
+
+
+def truncated_lecun_normal_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default init (nn.Conv and nn.Dense `lecun_normal`), drawn from
+    `generator`: a unit normal truncated at +-2 standard deviations and
+    rescaled to variance 1/fan_in, zero biases, identity BatchNorm."""
+    def sample(shape):
+        w = torch.empty(shape)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w / _TRUNC2_STD
+
+    return _fan_in_init_(model, sample)

@@ -117,7 +117,11 @@ def conv3x3_bn_act(x, w, scale, bias, act: str = "silu") -> torch.Tensor:
 
 
 def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor:
-    """Launch kernel K1 on a CUDA tensor with a `pack_weight` operand."""
+    """Launch kernel K1 on a CUDA tensor with a `pack_weight` operand. The
+    kernel takes Cout a multiple of 8 (16-byte TMA strides): another Cout
+    (YOLOv8n-pose's 39-channel keypoint branch) runs with zero output
+    channels appended to the weight, scale and bias, and the result is the
+    view of the first Cout channels."""
     global launches
     if x.device.type != "cuda":
         raise ValueError(f"kernel K1 takes CUDA tensors, got {x.device}")
@@ -126,10 +130,10 @@ def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor
     b, h, w_, cin = x.shape
     cp = padded_cin(cin)
     cout = wk.shape[0]
-    if wk.shape != (cout, 9, cp) or wk.dtype != torch.bfloat16 or cout % 8:
+    if wk.shape != (cout, 9, cp) or wk.dtype != torch.bfloat16:
         raise ValueError(
             f"packed weight {tuple(wk.shape)} {wk.dtype} does not fit Cin={cin} "
-            "(want (Cout, 9, Cin_p) bf16, Cout a multiple of 8)"
+            "(want (Cout, 9, Cin_p) bf16)"
         )
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
@@ -137,6 +141,10 @@ def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor
         raise ValueError(f"scale/bias must hold Cout={cout} values")
     if cp != cin:
         x = F.pad(x, (0, cp - cin))
+    cout_k = padded_cin(cout)
+    if cout_k != cout:
+        wk = F.pad(wk, (0, 0, 0, 0, 0, cout_k - cout))
+        scale, bias = (F.pad(t.float(), (0, cout_k - cout)) for t in (scale, bias))
     tensors = [x.contiguous(), wk.contiguous(), scale.float().contiguous(),
                bias.float().contiguous()]
     for t in tensors:
@@ -145,20 +153,20 @@ def conv3x3_bn_act_packed(x, wk, scale, bias, act: str = "silu") -> torch.Tensor
         if t.data_ptr() % 16:
             raise ValueError("K1 inputs must be 16-byte aligned (TMA)")
     x, wk, scale, bias = tensors
-    out = torch.empty((b, h, w_, cout), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, h, w_, cout_k), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
-        return out
-    plan = tile_plan(h, w_, cout)
+        return out[..., :cout]
+    plan = tile_plan(h, w_, cout_k)
     lib = _build.library("conv3x3_bn_act")
     with torch.cuda.device(x.device):  # the launch targets the current device
         code = lib.conv3x3_bn_act_bf16(
             x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, w_, cp, cout, _ACTS[act], plan.tw, plan.bn,
+            b, h, w_, cp, cout_k, _ACTS[act], plan.tw, plan.bn,
             torch.cuda.current_stream().cuda_stream,
         )
     if code >= _ENCODE_ERROR:
         raise RuntimeError(f"conv3x3_bn_act_bf16: tensor map refused (CUresult "
-                           f"{code - _ENCODE_ERROR}) for x {tuple(x.shape)}, Cout {cout}")
+                           f"{code - _ENCODE_ERROR}) for x {tuple(x.shape)}, Cout {cout_k}")
     _build.check(code, "conv3x3_bn_act_bf16")
     launches += 1
-    return out
+    return out if cout_k == cout else out[..., :cout]

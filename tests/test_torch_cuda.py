@@ -632,3 +632,74 @@ def test_msgpack_tracknet_on_card_equals_pt(dev, tmp_path):
         launches.append((conv3x3.launches - k1, heatmap.launches - k2))
     assert balls[0] == balls[1]
     assert launches[0] == launches[1] and all(n > 0 for n in launches[0]), launches
+
+
+# ---------------------------------------------- the training and quality harness
+# padel_analytics_tpu_torch/tools on the card at chip_smoke.py phase 20's
+# budgets, held to the JAX tests' bounds (tests/test_convergence_demo.py),
+# trained in fp32 and served in bf16 (K1, K2). The budgets are the JAX
+# tests' but the stride demo's, 120 steps rather than 60 (chip_smoke.py
+# TOOLS_STRIDE says why).
+
+
+@pytest.mark.parametrize("cin,cout,h,w", [(39, 39, 2, 2), (39, 39, 8, 8), (16, 16, 2, 2)])
+def test_k1_takes_yolov8n_pose_widths(dev, cin, cout, h, w):
+    """YOLOv8n-pose's keypoint branch (39 channels: Cout not a multiple of
+    8, run with zero channels appended) and YOLOv8n's 2x2 P5 maps."""
+    g = torch.Generator(device=dev).manual_seed(cout + h)
+    x = torch.randn((8, h, w, cin), device=dev, generator=g).to(torch.bfloat16)
+    wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (9 * cin) ** 0.5
+    scale = torch.rand(cout, device=dev, generator=g) + 0.5
+    bias = torch.randn(cout, device=dev, generator=g) * 0.1
+    before = conv3x3.launches
+    got = conv3x3.conv3x3_bn_act_packed(x, conv3x3.pack_weight(wt), scale, bias, "silu")
+    assert conv3x3.launches == before + 1 and got.shape == (8, h, w, cout)
+    _bf16_close(got, conv3x3.conv3x3_bn_act_plain(x.float(), wt.to(torch.bfloat16).float(),
+                                                  scale, bias, "silu"))
+
+
+def _counted(fn, **kw):
+    conv3x3.reset_launches()
+    heatmap.reset_launches()
+    out = fn(device="cuda", verbose=False, **kw)
+    return out, conv3x3.launches, heatmap.launches
+
+
+def test_tracknet_convergence_demo_on_card(dev):
+    from padel_analytics_tpu_torch.tools import convergence
+
+    out, k1, k2 = _counted(convergence.run_demo, steps=60, n=72)
+    before, after, losses = out["before"], out["after"], out["losses"]
+    assert (k1, k2) == (2 * 17 * 9, 2 * 9)  # before and after: 9 windows
+    assert after["within_4px"] >= 0.8, (before, after)
+    assert after["mean_px"] < before["mean_px"] / 3, (before, after)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) / 10
+
+
+def test_stride_quality_demo_on_card(dev):
+    from padel_analytics_tpu_torch.tools import stride_quality
+
+    out, k1, k2 = _counted(stride_quality.run_demo, steps=120, n=96)
+    r1, r8 = out["stride1"], out["nonoverlap"]
+    assert k1 > 0 and k2 > 0
+    assert r1["within_4px"] >= 0.9 and r8["within_4px"] >= 0.9, (r1, r8)
+    assert r8["mean_px"] <= r1["mean_px"] + 2.0, (r1, r8)
+
+
+def test_inpaint_convergence_demo_on_card(dev):
+    from padel_analytics_tpu_torch.tools import inpaint_convergence
+
+    out, k1, k2 = _counted(inpaint_convergence.run_demo, steps=600)
+    assert (k1, k2) == (0, 0)  # InpaintNet holds no 3x3 2-D conv
+    assert out["before_px"] > 180 and out["after_px"] < 120, out["after_px"]
+    assert out["after_px"] < out["before_px"] / 3
+
+
+def test_yolo_convergence_demo_on_card(dev):
+    from padel_analytics_tpu_torch.tools import yolo_convergence
+
+    out, k1, _ = _counted(yolo_convergence.run_demo, steps=150)
+    before, after, losses = out["before"], out["after"], out["losses"]
+    assert k1 > 0
+    assert before["map50"] < 0.2 and after["map50"] >= 0.6, (before, after)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) / 3

@@ -40,11 +40,13 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     """The package, chip_smoke.py, which drives it on the card, and the
-    fused check's fakes that chip_smoke.py imports."""
+    fused check's fakes and the harness's scene digests that chip_smoke.py
+    imports."""
     smoke = PKG.parent / "chip_smoke.py"
     fakes = PKG.parent / "tests" / "_torch_fused_cases.py"
-    assert smoke.is_file() and fakes.is_file()
-    files = [*_sources(), smoke, fakes]
+    digests = PKG.parent / "tests" / "_torch_tools_cases.py"
+    assert smoke.is_file() and fakes.is_file() and digests.is_file()
+    files = [*_sources(), smoke, fakes, digests]
     assert len(files) > 15
     scanned = {p.relative_to(PKG).as_posix() for p in _sources()}
     assert {"analytics/data_analytics.py", "analytics/projected_court.py", "apps/cli.py",
@@ -58,7 +60,10 @@ def test_port_imports_no_jax():
             "core/checkpoint.py", "models/convert.py", "apps/convert_weights.py",
             "apps/compare_predictions.py", "apps/validate_weights.py",
             "apps/streamlit_app.py", "parallel/tensor_parallel.py",
-            "core/profiling.py"} <= scanned
+            "core/profiling.py", "tools/__init__.py", "tools/_common.py",
+            "tools/convergence.py", "tools/stride_quality.py",
+            "tools/inpaint_convergence.py", "tools/yolo_convergence.py",
+            "tools/derived_quality.py"} <= scanned
     bad = [
         f"{path.relative_to(PKG.parent)}:{node.lineno} imports {name}"
         for path in files
