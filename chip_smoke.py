@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's ball, players, pose, fused, collect,
 model-court, multi-device and training paths, its CLI, its weights formats,
-its validation app, the mesh's model axis and the training and quality
-harness on one NVIDIA GPU.
+its validation app, the mesh's model axis, the training and quality
+harness and the staged fused path on one NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-ranks N   # only the mesh, one process on each of N cards
@@ -214,7 +214,30 @@ is printed):
    960x540, wire 480, pose 640 -> 320, det letterbox 320): the four configs
    printed, the parity config held to localize; (f) the trained TrackNet
    and YOLOv8n kept under padel_analytics_tpu_torch/_build/tools/ (the
-   kernels line's 'tools_*' paths).
+   kernels line's 'tools_*' paths);
+21. the staged path (FusedPipeline.run_staged: one upload a round of
+   superchunk chunks, one CUDA-graph replay a sub-step lane a round):
+   (a) phase 9's decisive fakes on its 45-frame 1920x1080 clip at chunk 16
+   x superchunk 2 and 8 x 3, for the rgb, i420 and derived ingests,
+   ball_stride 8, a yolo court fake and the device association: every
+   cache equal to run()'s frame by frame, each lane one graph replay a
+   round; (b) the full TrackNet on the ball: a predictor bias raised and a
+   BatchNorm scale (folded into K1) zeroed in place between runs each
+   change the ball and recapture the ball lane, restored each restore it;
+   (c) phase 10's trackers and clip through TrackingRunner(fused=True,
+   fused_staged=S) at S = 4 and 16 beside run(): the caches equal run()'s,
+   frames/s (median of 3 passes), the wrappers' launch counters over the
+   first pass (the warm-up chunk and the capture of each graph, which a
+   replay does not pass through), a profiled pass each (busy share, K1 and
+   K2 executions counted by the profiler against the design's count: 127
+   K1 and one K2 for every chunk of every round, 1033 and 9 for run();
+   graph launches, 3 a round), capture s, the loop's host split, pinned
+   host bytes, peak device memory; (d) FastTrackNet at 288x512, batch 16,
+   bf16: 17 K1 launches a forward, equal to the TrackNet module's K1 stacks
+   and the same fp32 predictor, within 2e-2 of the module's output and of
+   its plain version, timed. The kernels line's 'staged_*' entries carry
+   the S = 16 pass's profiled executions and device ms a chunk, and
+   'fast_tracknet' (d)'s numbers.
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
@@ -977,13 +1000,14 @@ def profile_run(run, label: str, kernels, top_n: int = 0, chunks: int = 0,
         return {}
     busy_ms, idle = _union_ms((e.time_range.start, e.time_range.end) for e in dev)
     summed_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    parts, kernel_ms = [], {}
+    parts, kernel_ms, kernel_n = [], {}, {}
     for name, key in kernels:
         ev = [e for e in dev if key in e.name]
         if not ev:
             parts.append(f"{name} not measured (no launch seen by the profiler)")
             continue
         kernel_ms[name] = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+        kernel_n[name] = len(ev)
         per = (f", {len(ev) / chunks:.1f} a chunk ({kernel_ms[name] / chunks:.3f} ms a chunk)"
                if chunks else "")
         parts.append(f"{name} {kernel_ms[name]:.3f} ms in {len(ev)} launches{per}")
@@ -1009,7 +1033,10 @@ def profile_run(run, label: str, kernels, top_n: int = 0, chunks: int = 0,
                     "cudaMemcpy"):
                 syncs[e.name] = syncs.get(e.name, 0) + 1
         print(f"  {label} host synchronising CUDA calls: {syncs or 'none recorded'}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": kernel_ms}
+    graph_launches = sum(e.device_type == torch.autograd.DeviceType.CPU
+                         and e.name == "cudaGraphLaunch" for e in events)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_ms": kernel_ms,
+            "kernel_n": kernel_n, "graph_launches": graph_launches}
 
 
 # The players' polygon gate: the synthetic rally's court from its far line
@@ -3665,6 +3692,288 @@ def phase_tools(smi: str) -> dict:
     return {"launches_by_path": {name: rec["launches"] for name, rec in recs.items()},
             "max_abs_err": max_err}
 
+# ------------------------------------------------ phase 21: the staged path
+
+#: 21 (a)'s (chunk, superchunk) pairs on the 45-frame clip: 32 and 24 frames
+#: a round, neither a divisor of the clip and its ball tail.
+STAGED_DECISIVE = ((16, 2), (8, 3))
+#: 21 (c)'s superchunks at full width (the JAX package's default is 16).
+STAGED_SUPERCHUNKS = (4, 16)
+STAGED_PASSES = 3  # timed passes a path, the median reported
+
+
+def phase_staged_decisive() -> None:
+    """21 (a): run_staged against run() with phase 9's decisive fakes (and a
+    12-keypoint cell detector as the yolo court) on a 45-frame 1920x1080
+    clip, for each STAGED_DECISIVE (chunk, superchunk), each ingest,
+    ball_stride 8, the yolo court and the device association: every cache
+    equal frame by frame, and each lane one graph replay a round."""
+    n = 45
+    frames = decisive_clip(n, seed=12)
+    players, pose, ball, fixed = _fake_trackers(n)
+    yolo = court_tracker("yolo", batch=FUSED_CHUNK)
+    yolo.engine.model = CellDetector(pose=True, nk=12)
+    yolo.video_info_post_init(players.video_info)
+    cases = {"rgb": {}, "i420": {"ingest": "i420"},
+             "derived": {"ingest": "derived", "wire_long_side": WIRE_LONG_SIDE},
+             "ball_stride 8": {"ball_stride": 8}, "yolo court": {},
+             "association device": {"association": "device"}}
+    t0 = time.perf_counter()
+    for chunk, superchunk in STAGED_DECISIVE:
+        for name, kwargs in cases.items():
+            court = yolo if name == "yolo court" else fixed
+            kwargs = {"chunk": chunk, "ingest": "rgb", **kwargs}
+            players.restart()  # ByteTrack afresh for each run
+            want = FusedPipeline(players, pose, ball, court, **kwargs).run(iter(frames), n)
+            players.restart()
+            pipe = FusedPipeline(players, pose, ball, court, **kwargs)
+            got = pipe.run_staged(iter(frames), n, superchunk=superchunk)
+            what = f"staged decisive {name}, chunk {chunk} x {superchunk}"
+            check(sorted(got) == sorted(want), f"{what}: keys {sorted(got)}")
+            for key in want:
+                a, b = _json(got[key]), _json(want[key])
+                bad = [f for f in range(n) if f >= len(a) or a[f] != b[f]]
+                check(len(a) == n and not bad, f"{what}: {key} differs from run() at frames "
+                                               f"{bad[:10]} ({len(a)} results)")
+            lanes = ("det", "pose", "ball") + (("court",) if court is yolo else ())
+            rounds = -(-(n + pipe._ball_off) // (chunk * superchunk))
+            replays = pipe.last_staged_graphs["replays"]
+            check(replays == dict.fromkeys(lanes, rounds),
+                  f"{what}: graph replays {replays}, want {rounds} a lane")
+    print(f"staged decisive check: {len(cases) * len(STAGED_DECISIVE)} runs of {n} frames "
+          f"1920x1080 ({', '.join(cases)}; chunk x superchunk "
+          f"{', '.join(f'{c} x {s}' for c, s in STAGED_DECISIVE)}) equal to run() frame by "
+          f"frame, one graph replay a lane a round; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_staged_weights() -> None:
+    """21 (b): the full TrackNet (288x512, bf16, random weights) on the ball
+    beside the decisive fakes: its predictor bias raised in place between
+    two run_staged calls lights every pixel; the last ConvBN's BatchNorm
+    scale zeroed (folded into K1's epilogue: a stale graph would replay the
+    old one) lights none. Each change must change the ball and recapture
+    the ball lane; each restore must restore it."""
+    n = 45
+    frames = decisive_clip(n, seed=12)
+    players, pose, _, court = _fake_trackers(n)
+    ball = BallTracker(None, config=BallTrackerConfig())
+    ball.video_info_post_init(players.video_info)
+    model = ball.tracknet.model
+    pipe = FusedPipeline(players, pose, ball, court, chunk=FUSED_CHUNK)
+
+    def staged() -> list:
+        return _json(pipe.run_staged(iter(frames), n, superchunk=2)["ball"])
+
+    first = staged()
+    seen = []
+    for label, param, change in (("predictor bias +50", model.predictor.bias,
+                                  lambda t: t.add_(50.0)),
+                                 ("up_block_3.conv_2 BN scale 0", model.up_block_3.conv_2.bn.weight,
+                                  lambda t: t.zero_())):
+        saved = param.detach().clone()
+        with torch.no_grad():
+            change(param)
+        changed = staged()
+        captured = pipe.last_staged_graphs["captured"]
+        with torch.no_grad():
+            param.copy_(saved)
+        restored = staged()
+        visible = sum(b["visibility"] for b in changed)
+        check(changed != first and captured == 2,
+              f"staged weights: {label} left the ball as it was ({captured} graphs captured)")
+        check(restored == first, f"staged weights: restoring {label} did not restore the ball")
+        seen.append(f"{label}: {sum(a != b for a, b in zip(changed, first))} of {n} balls "
+                    f"changed ({visible} visible), the ball lane's 2 graphs recaptured")
+    print(f"staged weights (TrackNet 288x512 bf16, chunk {FUSED_CHUNK} x 2): "
+          f"{sum(b['visibility'] for b in first)} visible at first; " + "; ".join(seen)
+          + "; each restore gave the first ball back")
+
+
+def _staged_counts(n: int, superchunk: int) -> dict:
+    """The K1 and K2 launches the design implies for one pass over n frames:
+    run() (superchunk 0) skips det and pose on the chunks of the ball's tail
+    alone; a staged round runs every sub-step on each of its chunks."""
+    chunks = -(-(n + 7) // FUSED_CHUNK)
+    if not superchunk:
+        return {"K1": 110 * -(-n // FUSED_CHUNK) + 17 * chunks, "K2": chunks}
+    staged = superchunk * -(-(n + 7) // (FUSED_CHUNK * superchunk))
+    return {"K1": 127 * staged, "K2": staged}
+
+
+def phase_staged(frames, smi: str) -> dict:
+    """21 (c): the reference plan at full width through TrackingRunner(
+    fused=True, fused_staged=S) for S in STAGED_SUPERCHUNKS beside run() (S =
+    0), all on phase 10's trackers and clip at the default i420 ingest: the
+    caches against run()'s (every difference named), the median frames/s of
+    STAGED_PASSES passes, a profiled pass (busy share, K1 and K2 executions
+    against the design's counts, graph launches), capture s, the loop's host
+    split, pinned host bytes, peak device memory."""
+    n = len(frames)
+    clip = MemoryClip(frames, fps=30.0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trackers = full_width_trackers(Path(tmp))
+        for t in trackers[:2]:
+            calibrate_cls_head(t, frames[:8])
+        want = None
+        for s in (0,) + STAGED_SUPERCHUNKS:
+            label = f"staged S={s}" if s else "staged run()"
+            runner = TrackingRunner(list(trackers), clip, tmp, fused=True,
+                                    fused_chunk=FUSED_CHUNK, fused_staged=s, render=False,
+                                    collect_data=False)
+            torch.cuda.reset_peak_memory_stats()
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            first_s = _fused_pass(runner, trackers)
+            wrapper = {"K1": conv3x3.launches, "K2": heatmap.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            got = [_json(t.results) for t in trackers]
+            pipe = runner._fused_pipeline
+            first_graphs = dict(pipe.last_staged_graphs) if s else None
+            if s:
+                # The wrappers count the warm-up chunk and the capture of each
+                # graph the first pass captured (one a lane and parity); the
+                # replays pass them by.
+                parities = first_graphs["captured"] // 3
+                want_wrapper = {"K1": 127 * (s + 1) * parities, "K2": (s + 1) * parities}
+            else:
+                want_wrapper = _staged_counts(n, 0)
+            check(wrapper == want_wrapper, f"{label}: the wrappers counted {wrapper} in the first "
+                                           f"pass, want {want_wrapper}")
+            if want is None:
+                want = got
+            diffs = {name: [f for f in range(n) if a[f] != b[f]][:10]
+                     for name, a, b in zip(TRACKER_NAMES, got, want)}
+            diffs = {k: v for k, v in diffs.items() if v}
+            check(not diffs, f"{label}: caches differ from run()'s at frames {diffs}")
+            times = sorted(_fused_pass(runner, trackers) for _ in range(STAGED_PASSES))
+            check([_json(t.results) for t in trackers] == want, f"{label}: a later pass differs")
+            fps = n / times[len(times) // 2]
+            runner.restart()
+            want_n = _staged_counts(n, s)
+            prof = profile_run(runner.run, label, (("K1", "conv3x3_bn_act"), ("K2", "heatmap_cc")),
+                               chunks=want_n["K2"], gaps=3)
+            seen = prof.get("kernel_n", {})
+            check(seen == want_n, f"{label}: the profiler counted {seen}, the design {want_n}")
+            busy = prof["busy_ms"] / prof["wall_ms"]
+            rec = {"fps": fps, "first_pass_fps": n / first_s, "busy": busy, "counts": seen,
+                   "k1_ms_a_chunk": prof["kernel_ms"]["K1"] / want_n["K2"],
+                   "k2_ms_a_chunk": prof["kernel_ms"]["K2"] / want_n["K2"],
+                   "graph_launches": prof["graph_launches"], "peak_gib": peak_gib}
+            line = (f"{label}: {n} frames 1920x1080 i420, chunk {FUSED_CHUNK}: {fps:.1f} frames/s "
+                    f"(median of {STAGED_PASSES}; first pass {n / first_s:.1f}); profiled busy "
+                    f"{100 * busy:.1f}%, K1 {seen['K1']} and K2 {seen['K2']} executions (design "
+                    f"{want_n}), {prof['graph_launches']} graph launches; peak device memory "
+                    f"{peak_gib:.2f} GiB")
+            if s:
+                graphs, split = pipe.last_staged_graphs, pipe.last_staged_split
+                rounds = want_n["K2"] // s
+                check(prof["graph_launches"] == 3 * rounds,
+                      f"{label}: {prof['graph_launches']} graph launches, want 3 a round")
+                rec.update(capture_s=first_graphs["capture_s"], split=split,
+                           pinned_bytes=graphs["pinned_bytes"])
+                line += (f"; first pass captured {first_graphs['captured']} graphs in "
+                         f"{first_graphs['capture_s'] * 1e3:.1f} ms (the wrappers counted "
+                         f"{wrapper} there: warm-up and capture); pinned host "
+                         f"{graphs['pinned_bytes'] / 2**20:.1f} MiB; the profiled pass's host "
+                         f"split (s) " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            out[s] = rec
+            print(line + f"; {smi}")
+    return out
+
+
+def phase_fast_tracknet(dev, k1: dict) -> dict:
+    """21 (d): FastTrackNet over the Flax tree of the full TrackNet (random
+    weights from seed 0) at 288x512, batch 16, bf16: 17 K1 launches a
+    forward; equal to the TrackNet module's own K1 stacks followed by the
+    same fp32 predictor, and within the JAX package's bf16 bound (2e-2) of
+    the module's output (whose predictor rounds its logits to bf16); against
+    its plain version on the card (every conv the plain fp32 conv of the
+    same bf16 operands) within that bound too; timed beside the plain
+    version. The kernels line's entry."""
+    from padel_analytics_tpu_torch.models import FastTrackNet
+    from padel_analytics_tpu_torch.models import tracknet_fast
+    from padel_analytics_tpu_torch.models.convert import flax_from_state_dict
+    from padel_analytics_tpu_torch.models.layers import max_pool_2x2, upsample_nearest_2x
+
+    model, in_dim = make_tracknet(8, "concat")
+    he_normal_(model, 30)
+    tree = _to_dev(flax_from_state_dict(model.state_dict()), dev)
+    model.to(dev).eval()
+    x = torch.rand((FUSED_CHUNK, 288, 512, in_dim), generator=torch.Generator().manual_seed(31))
+    x = x.to(dev, torch.bfloat16)
+    fast = FastTrackNet(8, torch.bfloat16, dev)
+    with torch.inference_mode():
+        conv3x3.reset_launches()
+        got = fast.apply(tree, x)
+        torch.cuda.synchronize()
+        launches = conv3x3.launches
+        x1 = model.down_block_1(x)
+        x2 = model.down_block_2(max_pool_2x2(x1))
+        x3 = model.down_block_3(max_pool_2x2(x2))
+        y = model.bottleneck(max_pool_2x2(x3))
+        y = model.up_block_3(model.up_block_2(model.up_block_1(y, x3), x2), x1)
+        w = model.predictor.weight.to(torch.bfloat16).float()
+        with no_tf32():
+            logits = F.conv2d(y.float().permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+        want = torch.sigmoid(logits + model.predictor.bias.float())
+        module_err = float((got - model(x)).abs().max())
+        kernel_conv = tracknet_fast.conv3x3_bn_act
+        tracknet_fast.conv3x3_bn_act = conv3x3.conv3x3_bn_act_plain
+        try:
+            plain = fast.apply(tree, x)
+            plain_ms = cuda_time_ms(lambda: fast.apply(tree, x), reps=3)
+        finally:
+            tracknet_fast.conv3x3_bn_act = kernel_conv
+        ms = cuda_time_ms(lambda: fast.apply(tree, x))
+    plain_err = float((got - plain).abs().max())
+    check(launches == 17, f"FastTrackNet: {launches} K1 launches a forward, want 17")
+    check(got.shape == (FUSED_CHUNK, 288, 512, 8) and bool(torch.isfinite(got).all()),
+          f"FastTrackNet: output {tuple(got.shape)}")
+    check(torch.equal(got, want), "FastTrackNet differs from TrackNet's stacks + fp32 predictor")
+    check(module_err < 2e-2 and plain_err < 2e-2,
+          f"FastTrackNet: {module_err} from the module, {plain_err} from the plain version")
+    convs = k1["sums"][f"b{FUSED_CHUNK}"]["tracknet_288x512"]
+    print(f"FastTrackNet 288x512 B={FUSED_CHUNK} bf16: {launches} K1 launches a forward; equal to "
+          f"the TrackNet module's stacks + the fp32 predictor; max abs {module_err:.3g} from the "
+          f"module's output (its logits rounded to bf16), {plain_err:.3g} from the plain version; "
+          f"{ms:.3f} ms a forward (folds and packs the tree each call), plain {plain_ms:.3f} ms, "
+          f"the 17 convs' bound {convs['bound_ms']:.3f} ms ({convs['bound_by']})")
+    return {"name": "fast_tracknet", "route": "cuda",
+            "source": "padel_analytics_tpu_torch/models/tracknet_fast.py (K1: "
+                      "padel_analytics_tpu_torch/csrc/conv3x3_bn_act.cu)",
+            "replaces": "padel_analytics_tpu/ops/pallas_conv.py:211 (through "
+                        "padel_analytics_tpu/models/tracknet_fast.py)",
+            "launches": launches, "max_abs_err": plain_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": convs["bound_ms"], "bound_by": convs["bound_by"], "library_ms": None,
+            "timed_per": f"one forward, B={FUSED_CHUNK} windows at 288x512, the tree on the card"}
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(dev)
+
+
+def staged_kernel_entries(k1: dict, k2: dict, staged: dict) -> list[dict]:
+    """The kernels line's staged_* entries: K1 and K2 as the staged main path
+    (TrackingRunner(fused_staged=16)) runs them, their executions counted by
+    the profiler (a graph replay does not pass through the wrappers'
+    counters) and their device ms a chunk from its profiled pass; the plain,
+    bound and library times are phase 3's and 4's for the same chunk."""
+    rec = staged[STAGED_SUPERCHUNKS[-1]]
+    out = []
+    for k, key, name in ((k1, "k1_ms_a_chunk", "K1"), (k2, "k2_ms_a_chunk", "K2")):
+        out.append({"name": f"staged_{k['name']}", "route": "cuda", "source": k["source"],
+                    "replaces": k["replaces"], "launches": rec["counts"][name],
+                    "max_abs_err": k["max_abs_err"], "ms": rec[key], "plain_ms": k["plain_ms"],
+                    "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                    "library_ms": k["library_ms"],
+                    "timed_per": f"device ms a chunk of {FUSED_CHUNK} in the profiled staged pass "
+                                 f"(superchunk {STAGED_SUPERCHUNKS[-1]})"})
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -3721,6 +4030,12 @@ def main() -> None:
     tools = phase_tools(smi)
     by_path.update(tools["launches_by_path"])
     k1["max_abs_err"] = max(k1["max_abs_err"], tools["max_abs_err"])
+    t0 = time.perf_counter()
+    phase_staged_decisive()
+    phase_staged_weights()
+    staged = phase_staged(synthetic_players(128, seed=9), smi)
+    fast_tracknet = phase_fast_tracknet(dev, k1)
+    print(f"staged: phase 21 took {time.perf_counter() - t0:.1f} s")
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):
@@ -3733,7 +4048,8 @@ def main() -> None:
         k["launches"] = by_path["collect"][name]
         k["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
     print(smi)
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, *staged_kernel_entries(k1, k2, staged),
+                                  fast_tracknet]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -101,14 +101,21 @@ class StagingRing:
             event.synchronize()
         return self._bufs[i].numpy()
 
-    def upload(self, k: int) -> torch.Tensor:
-        """Queue chunk k's slot's copy to the device on the current stream;
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of all the slots (pinned for a CUDA device)."""
+        return sum(buf.numel() for buf in self._bufs)
+
+    def upload(self, k: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Queue chunk k's slot's copy to the device on the current stream,
+        into `out` (a device buffer of the slot's shape) where given;
         returns the device tensor. On the CPU, a copy of the slot."""
         i = k % len(self._bufs)
         buf = self._bufs[i]
         if self.device.type == "cpu":
-            return buf.clone()
-        dev = buf.to(self.device, non_blocking=True)
+            return buf.clone() if out is None else out.copy_(buf)
+        dev = (buf.to(self.device, non_blocking=True) if out is None
+               else out.copy_(buf, non_blocking=True))
         self._events[i] = Lanes.record(torch.cuda.current_stream(self.device))
         return dev
 

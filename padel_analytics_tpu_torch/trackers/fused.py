@@ -1,14 +1,14 @@
 """Fused multi-tracker pipeline: one upload per chunk of frames, three or
 four sub-steps on their own CUDA streams sharing it.
 
-Counterpart of ``padel_analytics_tpu/trackers/fused.py`` (`FusedPipeline.run`
-and `measure_device_split`). The per-tracker runner pays one decode, one
-upload and one serial pass per tracker; here each chunk is decoded once,
-packed on the host into a reused pinned staging slot (RGB; I420 at half
-the bytes; or 'derived': an I420 buffer of the frame downscaled on the host
-by an INTER_AREA resize bit-equal to OpenCV's, to a long side of at most
-`wire_long_side`, a quarter of the 1080p pixels at 960), copied to the
-device once, and consumed by:
+Counterpart of ``padel_analytics_tpu/trackers/fused.py`` (`FusedPipeline.run`,
+`run_staged`, `run_mesh` and `measure_device_split`). The per-tracker runner
+pays one decode, one upload and one serial pass per tracker; here each chunk
+is decoded once, packed on the host into a reused pinned staging slot (RGB;
+I420 at half the bytes; or 'derived': an I420 buffer of the frame
+downscaled on the host by an INTER_AREA resize bit-equal to OpenCV's, to a
+long side of at most `wire_long_side`, a quarter of the 1080p pixels at
+960), copied to the device once, and consumed by:
 
   frames (B, H, W, 3) uint8 on the device   [one H2D copy, copy stream]
     ├── det  (stream): letterbox -> YOLOv8 -> NMS candidates  ┐ each ends in
@@ -56,8 +56,11 @@ all-gathered and drained alike on every rank, and the ball finishes with one
 halo-exchange window pass over the gathered preprocessed frames
 (parallel/sharded_inference.py).
 
-Not ported, raising NotImplementedError that names its ROADMAP.md item:
-`run_staged`.
+`run_staged` takes a round of superchunk x chunk frames per upload: one
+pinned copy and the decode into one of two round buffers, then one replay a
+lane of a CUDA graph that runs the lane's sub-step over every chunk of the
+round (trackers/_graphs.py; eager on the CPU), one D2H copy a lane, and
+one drain a round. It gives `run`'s results byte for byte.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from ..ops.resize import letterbox_plan, resize_plan
 from ..parallel.mesh import Mesh
 from ..parallel.sharded_inference import sharded_window_inference
 from ._ballwindow import frame_channels, make_frame_preprocess, median_model_resolution
+from ._graphs import LaneGraph, weights_key
 from ._streams import DeviceTimer, Lanes, StagingRing, to_host
 from .ball import BallTracker
 from .court_keypoints import KeypointsTracker
@@ -193,11 +197,13 @@ class _ResultBuilder:
         self.stream = stream if ball.inpaintnet is None else None
         self.scan = scan
         self._emitted = 0
+        self.assoc_s = 0.0  # host seconds in ByteTrack or the scan
 
     def add_det(self, boxes, scores, valid) -> None:
         """(F, D, 4/-/-) host arrays for F consecutive frames; ByteTrack (or
         the scan) assigns the IDs here, in frame order. A detection the scan
         gives no ID is dropped, as one ByteTrack does not keep."""
+        t0 = time.perf_counter()
         if self.scan is not None:
             ids = self.scan(boxes, scores, valid)
             keep_mask = valid & (ids > 0)
@@ -211,6 +217,7 @@ class _ResultBuilder:
                 sel = np.flatnonzero(keep)[kept]
                 keep_mask[f, sel] = True
                 ids[f, sel] = ids_f
+        self.assoc_s += time.perf_counter() - t0
         self._det_chunks.append((boxes, scores, keep_mask, ids))
         self._det_ready += boxes.shape[0]
 
@@ -320,6 +327,16 @@ class _Download(NamedTuple):
         return self.host[:n], self.layout
 
 
+class _RoundDownload(_Download):
+    """A staged round's rows: on a card the host buffer is the lane graph's
+    pinned buffer, which the round after next overwrites, so `take` hands
+    out a copy."""
+
+    def take(self, n: int) -> tuple[torch.Tensor, Layout]:
+        host, layout = _Download.take(self, n)
+        return host.clone(), layout
+
+
 class _Chunk(NamedTuple):
     lo: int  # first frame
     n_real: int  # frames of the clip in it
@@ -340,9 +357,55 @@ class _BallState(NamedTuple):
     heat_carry: torch.Tensor  # (L-1, L, H, W)
 
 
+class _Staged:
+    """A staged configuration's device buffers and lane graphs, kept across
+    runs of `FusedPipeline.run_staged`.
+
+    Round r's decoded frames go to `frames[r % 2]`: round r + 1 is uploaded
+    and decoded into the other buffer while round r's lanes read this one,
+    and the decode of round r + 2 waits on the events in `free[r % 2]`,
+    recorded behind round r's lanes. The I420 wire buffer is one: the
+    decode reads it on the copy lane right after its upload. The ball's
+    state is one set of tensors that its graphs read: the median (refilled
+    each run), the carries (zeroed each run, written back by each round)
+    and the round's coefficient and flag rows (refilled on the ball lane
+    before each replay). `graphs` holds a `LaneGraph` for each (lane,
+    parity), captured with the weights that `weights` names."""
+
+    def __init__(self, pipe: "FusedPipeline", src_hw: tuple[int, int], superchunk: int):
+        ball, dev = pipe.ball, pipe.device
+        self.rows = pipe.chunk * superchunk
+        (wh, ww), _, _ = pipe._wire(src_hw)
+
+        def empty(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.frames = [empty(self.rows, wh, ww, 3, dtype=torch.uint8) for _ in range(2)]
+        self.wire = (None if pipe.ingest == "rgb" else
+                     empty(self.rows, *pipe._wire_shape(src_hw)[1:], dtype=torch.uint8))
+        seq_len = ball.tracknet_seq_len
+        self.state = _BallState(
+            median=empty(ball.HEIGHT, ball.WIDTH, 3, dtype=torch.uint8),
+            median_src=(empty(wh, ww, 3) if ball.bg_mode in ("subtract", "subtract_concat")
+                        else None),
+            coef=empty(self.rows, seq_len),
+            swap=empty(self.rows),
+            frame_carry=empty(seq_len - 1, ball.HEIGHT, ball.WIDTH, frame_channels(ball.bg_mode)),
+            heat_carry=empty(seq_len - 1, seq_len, ball.HEIGHT, ball.WIDTH),
+        )
+        self.core = pipe._ball_core(src_hw)
+        # The plans whose device operands the graphs read, held for them.
+        self.plans = pipe._plans(src_hw)
+        self.free: list[list] = [[], []]
+        self.graphs: dict[tuple[str, int], LaneGraph] = {}
+        self.weights: dict[str, tuple] = {}
+        self.models: dict = {}
+
+
 class FusedPipeline:
     """Runs the players, pose and ball trackers (and a court, fixed or from
-    a model) over one upload per chunk of frames."""
+    a model) over one upload per chunk of frames (`run`), or per round of
+    chunks (`run_staged`)."""
 
     def __init__(
         self,
@@ -395,6 +458,9 @@ class FusedPipeline:
         self.lanes = Lanes(self.device)
         self._step_cache: dict = {}
         self._rings: dict = {}
+        self._staged: Optional[tuple[tuple, _Staged]] = None
+        self.last_staged_split: Optional[dict] = None
+        self.last_staged_graphs: Optional[dict] = None
 
     @staticmethod
     def check_options(ingest: str, association: str = "auto", ball_stride: int = 1,
@@ -476,12 +542,16 @@ class FusedPipeline:
             return (self.chunk, wh * 3 // 2, ww)
         return (self.chunk, wh, ww, 3)
 
-    def _ring(self, src_hw: tuple[int, int]) -> StagingRing:
-        """The staging ring for this wire shape, kept across runs (pinning
-        ~100 MB a slot at 1080p is slow)."""
+    def _ring(self, src_hw: tuple[int, int], frames: Optional[int] = None,
+              slots: int = STAGING_SLOTS) -> StagingRing:
+        """The staging ring for this wire shape (a chunk, or `frames`
+        frames), kept across runs (pinning ~100 MB a slot at 1080p is
+        slow)."""
         shape = self._wire_shape(src_hw)
+        if frames is not None:
+            shape = (frames,) + shape[1:]
         if shape not in self._rings:
-            self._rings[shape] = StagingRing(shape, STAGING_SLOTS, self.device)
+            self._rings[shape] = StagingRing(shape, slots, self.device)
         return self._rings[shape]
 
     def _pack_chunk(self, chunk_frames: list[np.ndarray], out: np.ndarray,
@@ -515,7 +585,25 @@ class FusedPipeline:
         return self.pose.device_step
 
     def _build_ball_step(self, src_hw: tuple[int, int]):
+        """`run`'s ball step over chunk k (its first frame `lo`): the
+        chunk's rows of the run's coefficient table (row lo + j holds the
+        coefficients of frame lo + j - (L-1)) and, where any frame of the
+        chunk is flagged (`swap`), of the channel-quirk flags."""
         b = self.chunk
+        core = self._ball_core(src_hw)
+
+        def ball_step(frames, state: _BallState, lo: int, swap: bool):
+            flags = state.swap[lo: lo + b] if swap else None
+            return core(frames, state, state.coef[lo: lo + b], flags)
+
+        return ball_step
+
+    def _ball_core(self, src_hw: tuple[int, int]):
+        """The ball sub-step over one chunk of wire frames, given its (B, L)
+        coefficient rows and its (B,) channel-quirk flags (or None): (the
+        packed rows and layout, the state with the new carries). The swap
+        applies to the ball branch only, before the difference / resize;
+        det and pose keep RGB. All-zero flags give the bits of None."""
         ball = self.ball
         # 'derived': the resize to model resolution starts from the wire
         # frames; the subtract modes' median is downscaled to the wire
@@ -524,31 +612,23 @@ class FusedPipeline:
                                     ball.bg_mode)
 
         if self.ball_stride != 1:
-            def ball_step_nonoverlap(frames, state: _BallState, lo: int, swap: bool):
+            def core_nonoverlap(frames, state: _BallState, coef, flags):
                 # The chunk's own frames in windows of seq_len, each run
                 # once; the carries pass through, the coefficients unread.
-                flags = state.swap[lo: lo + b] if swap else None
                 resized = pre(frames, median_src=state.median_src, swap=flags)
                 cx, cy, vis = ball._nonoverlap_step(resized, state.median)
                 return pack_rows([torch.stack([cx, cy, vis], dim=-1)]), state
 
-            return ball_step_nonoverlap
+            return core_nonoverlap
 
-        def ball_step(frames, state: _BallState, lo: int, swap: bool):
-            # The chunk's rows of the run's coefficient table (row lo + j
-            # holds the coefficients of frame lo + j - (L-1)) and, where any
-            # frame of the chunk is flagged, of the channel-quirk flags. The
-            # swap applies to the ball branch only, before the difference /
-            # resize; det and pose keep RGB.
-            coef = state.coef[lo: lo + b]
-            flags = state.swap[lo: lo + b] if swap else None
+        def core(frames, state: _BallState, coef, flags):
             resized = pre(frames, median_src=state.median_src, swap=flags)
             cx, cy, vis, frame_carry, heat_carry = ball._window_step(
                 resized, state.median, state.frame_carry, state.heat_carry, coef)
             packed = pack_rows([torch.stack([cx, cy, vis], dim=-1)])
             return packed, state._replace(frame_carry=frame_carry, heat_carry=heat_carry)
 
-        return ball_step
+        return core
 
     def _build_court_step(self, src_hw: tuple[int, int]):
         """The fourth sub-step, a model court's device half over the wire
@@ -570,8 +650,7 @@ class FusedPipeline:
         Uploads every resize plan's operands (dense matrices or bands, as
         each pass takes them) and the court's constants to the device here,
         on the current stream, so no step uploads any."""
-        key = (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest,
-               self._wire(src_hw)[0], self.court_mode, self.ball_stride)
+        key = self._steps_key(src_hw)
         if key not in self._step_cache:
             self._step_cache[key] = (
                 self._ingest_decode(src_hw),
@@ -580,6 +659,16 @@ class FusedPipeline:
                 self._build_ball_step(src_hw),
                 self._build_court_step(src_hw),
             )
+        self._plans(src_hw)
+        return self._step_cache[key]
+
+    def _steps_key(self, src_hw: tuple[int, int]) -> tuple:
+        return (tuple(src_hw), self.chunk, self.ball.bg_mode, self.ingest,
+                self._wire(src_hw)[0], self.court_mode, self.ball_stride)
+
+    def _plans(self, src_hw: tuple[int, int]) -> list:
+        """The resize plans the sub-steps run from the wire frames, their
+        operands uploaded to the device (and the court's constants)."""
         wire = self._wire(src_hw)[0]
         size = self.pose.train_image_size
         plans = [letterbox_plan(wire, self.players.IMGSZ).plan,
@@ -594,7 +683,7 @@ class FusedPipeline:
             imagenet_stats(self.device)
         for plan in plans:
             plan.upload(self.device)
-        return self._step_cache[key]
+        return plans
 
     def _ball_device_setup(self, n: int, median_resized, median_src, quirk_flags) -> _BallState:
         """Device-resident ball-branch state for an n-frame clip. The tables
@@ -603,12 +692,7 @@ class FusedPipeline:
         b = self.chunk
         ball = self.ball
         seq_len = ball.tracknet_seq_len
-        n_ext_pad = (-(-(n + seq_len - 1) // b)) * b + b
-        coef = np.zeros((n_ext_pad, seq_len), np.float32)
-        coef[seq_len - 1: seq_len - 1 + n] = overlap_ensemble_coefficients(n, seq_len,
-                                                                            ball.EVAL_MODE)
-        swap = np.zeros(n_ext_pad, np.float32)
-        swap[:n] = quirk_flags
+        coef, swap = self._ball_tables(n, quirk_flags, (-(-(n + seq_len - 1) // b)) * b + b)
         dev = self.device
         return _BallState(
             median=torch.from_numpy(median_resized).to(dev),
@@ -621,6 +705,18 @@ class FusedPipeline:
             heat_carry=torch.zeros((seq_len - 1, seq_len, ball.HEIGHT, ball.WIDTH),
                                    dtype=torch.float32, device=dev),
         )
+
+    def _ball_tables(self, n: int, quirk_flags, rows: int) -> tuple[np.ndarray, np.ndarray]:
+        """An n-frame clip's (rows, L) ensemble coefficients (row f + L-1:
+        frame f's) and (rows,) channel-quirk flags (row f: frame f's), fp32,
+        zero past the clip."""
+        seq_len = self.ball.tracknet_seq_len
+        coef = np.zeros((rows, seq_len), np.float32)
+        coef[seq_len - 1: seq_len - 1 + n] = overlap_ensemble_coefficients(n, seq_len,
+                                                                            self.ball.EVAL_MODE)
+        swap = np.zeros(rows, np.float32)
+        swap[:n] = quirk_flags
+        return coef, swap
 
     def _setup(self, frame_iter, total_frames):
         """The run's set-up, before any chunk: the median, the steps (and
@@ -658,19 +754,7 @@ class FusedPipeline:
             builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
 
             def prepare(k: int) -> int:
-                """Host side of chunk k: decode fill, then pack into its
-                staging slot once the slot's last upload is done."""
-                lo, hi = k * b, min((k + 1) * b, n_ext)
-                avail = fw.fill_to(min(hi, n))
-                if avail < min(hi, n):
-                    raise ValueError(f"the frame iterator ran dry after {avail} frames of "
-                                     f"total_frames={n}")
-                # Only the ball's tail, past the clip, is zero frames.
-                frames = [fw.get(i) if i < n else zero_frame for i in range(lo, hi)]
-                frames += [zero_frame] * (b - len(frames))
-                self._pack_chunk(frames, ring.acquire(k), pack_pool)
-                fw.drop_below(min(hi, n))  # frames are kept until packed
-                return lo
+                return self._prepare(fw, ring, k, k * b, b, n, zero_frame, pack_pool)
 
             # The next chunk's decode and pack (numpy, which releases the
             # interpreter lock) run in a worker while this thread queues the
@@ -680,6 +764,23 @@ class FusedPipeline:
                 self._run_chunk_loop(num_chunks, prefetch, prepare, steps, ring, n,
                                      quirk_flags, state, builder, src_hw)
             return builder.finish()
+
+    def _prepare(self, fw: _FrameWindow, ring: StagingRing, k: int, lo: int, count: int, n: int,
+                 zero_frame: np.ndarray, pool: ThreadPoolExecutor) -> int:
+        """Host side of chunk (or round) k, frames [lo, lo + count): decode
+        fill, then pack into its staging slot once the slot's last upload is
+        done. Only the ball's tail, past the clip's n frames, is zero
+        frames; a frame iterator that runs dry before n raises ValueError.
+        Returns lo."""
+        hi = min(lo + count, n)
+        avail = fw.fill_to(hi)
+        if avail < hi:
+            raise ValueError(f"the frame iterator ran dry after {avail} frames of "
+                             f"total_frames={n}")
+        frames = [fw.get(i) if i < n else zero_frame for i in range(lo, lo + count)]
+        self._pack_chunk(frames, ring.acquire(k), pool)
+        fw.drop_below(hi)  # frames are kept until packed
+        return lo
 
     def _run_chunk_loop(self, num_chunks, prefetch, prepare, steps, ring, n, quirk_flags,
                         state, builder, src_hw) -> None:
@@ -766,11 +867,11 @@ class FusedPipeline:
             results.add_court(kpts, valid)
 
     def _drain(self, chunk: _Chunk, builder: _ResultBuilder, n: int, src_hw) -> None:
-        """Wait for a chunk's downloads, then its host work: the trackers'
-        host halves, ByteTrack and the ball rows."""
+        """Wait for a chunk's (or a staged round's) downloads, then its host
+        work: the trackers' host halves, ByteTrack and the ball rows."""
         if chunk.n_real:
             self._unpack_frames(builder, chunk, src_hw)
-        (packed,) = unpack_rows(*chunk.ball.take(self.chunk))
+        (packed,) = unpack_rows(*chunk.ball.take(chunk.ball.host.shape[0]))
         emit_lo = chunk.lo - self._ball_off
         for j, (x, y, v) in enumerate(packed.tolist()):
             if 0 <= emit_lo + j < n:
@@ -843,11 +944,212 @@ class FusedPipeline:
 
     # ------------------------------------------------------------------
 
-    def run_staged(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_staged is not ported (ROADMAP.md Queue 1 item 4c: CUDA graphs over the chunk "
-            "loop against a staged scan, decided from the profiled dispatch gaps)"
-        )
+    def run_staged(self, frame_iter: Iterable[np.ndarray], total_frames: int,
+                   superchunk: int = 16, stream=None) -> dict[str, list]:
+        """Like `run`, a round of `superchunk` x chunk frames at a time: per
+        round one pinned upload and the ingest decode on the copy lane, then
+        on each sub-step's lane one replay of the CUDA graph of its
+        `superchunk` chunk steps (on the CPU the same steps, eagerly) and
+        one copy of the round's packed rows to the host; the previous round
+        is drained on the host meanwhile, and `stream` is fed once a round.
+        The results equal `run`'s byte for byte. Det, pose and a model court
+        also run over the last round's padding chunks; the drain cuts them.
+
+        `last_staged_split`: host seconds of the loop's terms (setup_s,
+        prep_wait_s, upload_s, dispatch_s (captures included), assoc_s,
+        drain_s). `last_staged_graphs`: each lane's graph replays in the
+        run, the lane graphs built and captured (and the capture seconds),
+        the pinned host bytes of the round buffers."""
+        if superchunk < 1:
+            raise ValueError(f"superchunk must be >= 1, got {superchunk}")
+        split = dict.fromkeys(("setup_s", "prep_wait_s", "upload_s", "dispatch_s", "assoc_s",
+                               "drain_s"), 0.0)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
+                frame_iter, total_frames)
+            steps = self._get_steps(src_hw)
+            entry = self._staged_entry(src_hw, superchunk)
+            rows = entry.rows
+            num_rounds = -(-(n + self._ball_off) // rows)
+            coef, swap = self._ball_tables(n, quirk_flags, num_rounds * rows + self.chunk)
+            st = entry.state
+            st.median.copy_(torch.from_numpy(median_resized))
+            if st.median_src is not None:
+                st.median_src.copy_(torch.from_numpy(median_src))
+            st.frame_carry.zero_()
+            st.heat_carry.zero_()
+            tables = (torch.from_numpy(coef).to(self.device), torch.from_numpy(swap).to(self.device))
+            self.lanes.after_current()
+            ring = self._ring(src_hw, rows, slots=2)
+            zero_frame = np.zeros_like(fw.first())
+            builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
+            before = {id(g): (g.replays, g.graph is not None) for g in entry.graphs.values()}
+            split["setup_s"] = time.perf_counter() - t0
+
+            def prepare(r: int) -> int:
+                return self._prepare(fw, ring, r, r * rows, rows, n, zero_frame, pack_pool)
+
+            def drain(rnd: _Chunk) -> None:
+                t0 = time.perf_counter()
+                self._drain(rnd, builder, n, src_hw)
+                split["drain_s"] += time.perf_counter() - t0
+
+            # Round r + 1 is packed in `prefetch` while round r is queued and
+            # round r - 1 drained.
+            with ThreadPoolExecutor(PACK_THREADS) as pack_pool, \
+                    ThreadPoolExecutor(1) as prefetch:
+                next_prep = prefetch.submit(prepare, 0)
+                pending: Optional[_Chunk] = None
+                for r in range(num_rounds):
+                    t0 = time.perf_counter()
+                    lo = next_prep.result()
+                    split["prep_wait_s"] += time.perf_counter() - t0
+                    if r + 1 < num_rounds:
+                        next_prep = prefetch.submit(prepare, r + 1)
+                    current = self._dispatch_round(entry, steps, ring, r, lo, n, tables, split)
+                    if pending is not None:
+                        drain(pending)
+                    pending = current
+                drain(pending)
+            self.lanes.current_after_all()
+            results = builder.finish()
+        split["assoc_s"] = builder.assoc_s
+        split["drain_s"] -= builder.assoc_s
+        self.last_staged_split = split
+        self.last_staged_graphs = self._graph_stats(entry, ring, before)
+        return results
+
+    def _staged_entry(self, src_hw: tuple[int, int], superchunk: int) -> _Staged:
+        """The staged buffers and graphs of this configuration (the key of
+        `_get_steps` and the superchunk; one configuration kept), with the
+        graphs of every model whose weights changed since their capture
+        dropped (`weights_key`)."""
+        key = self._steps_key(src_hw) + (superchunk,)
+        if self._staged is None or self._staged[0] != key:
+            self._staged = None  # the old buffers go before the new ones come
+            self._staged = (key, _Staged(self, src_hw, superchunk))
+        entry = self._staged[1]
+        models = {"det": self.players.engine.model, "pose": self.pose.engine.model,
+                  "ball": self.ball.tracknet.model}
+        if self.court_mode in ("yolo", "resnet"):
+            models["court"] = self.court.engine.model
+        for name, model in models.items():
+            weights = weights_key(model)
+            if entry.weights.get(name) != weights:
+                entry.weights[name] = weights
+                entry.models[name] = model  # held: its id stays its own
+                for p in (0, 1):
+                    entry.graphs.pop((name, p), None)
+        return entry
+
+    def _dispatch_round(self, entry: _Staged, steps, ring: StagingRing, r: int, lo: int, n: int,
+                        tables, split: dict) -> _Chunk:
+        """Queue round r's device work (its first frame `lo`): on the copy
+        lane, once round r - 2's lanes let go of the round's frames buffer,
+        the upload and the decode into it; on the ball lane the round's rows
+        of the run's coefficient and flag tables; then on each lane its
+        graph's replay after the decode and the copy of its rows to the
+        host. Returns the round's record."""
+        lanes, p, rows, b = self.lanes, r % 2, entry.rows, self.chunk
+        decode = steps[0]
+        frames = entry.frames[p]
+        t0 = time.perf_counter()
+        with lanes.on(lanes.copy):
+            for event in entry.free[p]:
+                lanes.wait(lanes.copy, event)
+            if entry.wire is None:
+                ring.upload(r, out=frames)
+            else:
+                wire = ring.upload(r, out=entry.wire)
+                for c in range(0, rows, b):  # a chunk at a time: the decode's int32 temporaries
+                    frames[c: c + b].copy_(decode(wire[c: c + b]))
+            ready = lanes.record(lanes.copy)
+        coef, swap = tables
+        with lanes.on(lanes.ball):
+            entry.state.coef.copy_(coef[lo: lo + rows])
+            entry.state.swap.copy_(swap[lo: lo + rows])
+        t1 = time.perf_counter()
+        split["upload_s"] += t1 - t0
+        named = [("det", lanes.det), ("pose", lanes.pose), ("ball", lanes.ball)]
+        if self.court_mode in ("yolo", "resnet"):
+            named.append(("court", lanes.court))
+        downloads = {}
+        for name, lane in named:
+            graph = self._lane_graph(entry, steps, name, p, lane)
+            with lanes.on(lane):
+                lanes.wait(lane, ready)
+                host, layout = graph.run()
+                downloads[name] = _RoundDownload(host, layout, lanes.record(lane), graph.out)
+        entry.free[p] = [d.done for d in downloads.values() if d.done is not None]
+        split["dispatch_s"] += time.perf_counter() - t1
+        return _Chunk(lo, max(0, min(lo + rows, n) - lo), downloads["det"], downloads["pose"],
+                      downloads["ball"], downloads.get("court"))
+
+    def _lane_graph(self, entry: _Staged, steps, name: str, p: int, lane) -> LaneGraph:
+        """Lane `name`'s graph over `entry.frames[p]`, built on first use:
+        the lane's sub-step over each chunk of the round, the packed rows
+        concatenated; the ball's chunks carry their state from one to the
+        next and write the last carries back. Its warm-up runs one chunk
+        (the ball's on copies of the carries). The two parities of a lane
+        share one memory pool: they replay in turn on the one lane."""
+        graph = entry.graphs.get((name, p))
+        if graph is not None:
+            return graph
+        b, frames, st, core = self.chunk, entry.frames[p], entry.state, entry.core
+        chunks = [slice(c, c + b) for c in range(0, entry.rows, b)]
+
+        def rows_of(packed: list) -> tuple[torch.Tensor, Layout]:
+            return torch.cat([buf for buf, _ in packed]), packed[0][1]
+
+        if name == "ball":
+            def fn():
+                state, packed = st, []
+                for sl in chunks:
+                    out, state = core(frames[sl], state, st.coef[sl], st.swap[sl])
+                    packed.append(out)
+                if self.ball_stride == 1:  # the next round's carries
+                    st.frame_carry.copy_(state.frame_carry)
+                    st.heat_carry.copy_(state.heat_carry)
+                return rows_of(packed)
+
+            def warm():
+                core(frames[:b], st._replace(frame_carry=st.frame_carry.clone(),
+                                             heat_carry=st.heat_carry.clone()),
+                     st.coef[:b], st.swap[:b])
+        else:
+            step = {"det": steps[1], "pose": steps[2], "court": steps[4]}[name]
+
+            def fn():
+                return rows_of([step(frames[sl]) for sl in chunks])
+
+            def warm():
+                step(frames[:b])
+
+        other = entry.graphs.get((name, 1 - p))
+        pool = other.graph.pool() if other is not None and other.graph is not None else None
+        graph = entry.graphs[(name, p)] = LaneGraph(fn, warm, lane, entry.weights[name], pool)
+        return graph
+
+    @staticmethod
+    def _graph_stats(entry: _Staged, ring: StagingRing, before: dict) -> dict:
+        """A run's graph record: replays by lane, graphs built, captured and
+        their capture seconds, the pinned host bytes of the round buffers."""
+        replays: dict[str, int] = {}
+        built = captured = 0
+        capture_s = 0.0
+        for (name, _), g in entry.graphs.items():
+            was_replays, was_captured = before.get(id(g), (0, False))
+            built += id(g) not in before
+            replays[name] = replays.get(name, 0) + g.replays - was_replays
+            if g.graph is not None and not was_captured:
+                captured += 1
+                capture_s += g.capture_s
+        pinned = ring.nbytes if ring.device.type == "cuda" else 0
+        pinned += sum(g.host.numel() * g.host.element_size() for g in entry.graphs.values()
+                      if g.host is not None)
+        return {"replays": replays, "built": built, "captured": captured,
+                "capture_s": capture_s, "pinned_bytes": pinned}
 
     def run_mesh(self, frame_iter: Iterable[np.ndarray], total_frames: int,
                  mesh: Mesh) -> dict[str, list]:

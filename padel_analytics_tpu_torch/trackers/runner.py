@@ -167,6 +167,9 @@ class TrackingRunner:
         max_cached_frames: int = 4000,
         fused: bool = False,
         fused_chunk: int = 16,
+        # > 0: this many chunks a dispatch (FusedPipeline.run_staged: one
+        # upload and, on a card, one CUDA-graph replay a lane per round).
+        fused_staged: int = 0,
         # Wire format: 'rgb', 'i420' (1.5 bytes a pixel, rebuilt on the
         # device bit-exactly to cv2; the only deviation from 'rgb' is the
         # chroma subsampling round trip), or 'derived' (I420 of the frame
@@ -199,8 +202,11 @@ class TrackingRunner:
             _require_cv2()  # before any decode or inference
         if not 0.0 < render_scale <= 1.0:
             raise ValueError(f"render_scale must be in (0, 1], got {render_scale}")
+        if fused_staged < 0:
+            raise ValueError(f"fused_staged must be >= 0, got {fused_staged}")
         self.fused = fused
         self.fused_chunk = fused_chunk
+        self.fused_staged = fused_staged
         self.fused_ingest = fused_ingest
         self.fused_wire_long_side = fused_wire_long_side
         self.fused_ball_stride = fused_ball_stride
@@ -338,8 +344,11 @@ class TrackingRunner:
                 drawer.notify(len(targets[2]))
 
         try:
-            if self.mesh is not None:
+            if self.mesh is not None:  # a mesh takes precedence over staging
                 out = pipeline.run_mesh(iter(self.frame_store), self.total_frames, self.mesh)
+            elif self.fused_staged > 0:
+                out = pipeline.run_staged(iter(self.frame_store), total_frames=self.total_frames,
+                                          superchunk=self.fused_staged, stream=stream)
             else:
                 out = pipeline.run(iter(self.frame_store), total_frames=self.total_frames,
                                    stream=stream)

@@ -150,6 +150,14 @@ def _runner(mesh, out: Path) -> None:
     runner.data_analytics.write_csv(out / "report.csv", 10.0)
 
 
+def _fused_runner(mesh, out: Path) -> None:
+    """The `fused` and the `runner` cases, into out/fused and out/runner, in
+    one process group (one start-up of the ranks for both)."""
+    for name, case in (("fused", _fused), ("runner", _runner)):
+        (out / name).mkdir()
+        case(mesh, out / name)
+
+
 #: BallTracker(mesh=...)'s cases: (clip length, window stride). 12 frames on
 #: two ranks leave a shard shorter than the halo: the single-device path.
 BALL_CASES = [(26, 1), (26, SEQ), (12, 1)]
@@ -177,6 +185,14 @@ def _ball(mesh, out: Path) -> None:
         frames = clip_frames(np.random.default_rng(3), n=n)
         balls = ball_tracker(n, stride, mesh).predict_frames(iter(frames), total_frames=n)
         (out / f"ball_{n}_{stride}.json").write_text(json.dumps([b.serialize() for b in balls]))
+
+
+def _sharded_ball(mesh, out: Path) -> None:
+    """The `sharded` and the `ball` cases, into out/sharded and out/ball, in
+    one process group."""
+    for name, case in (("sharded", _sharded), ("ball", _ball)):
+        (out / name).mkdir()
+        case(mesh, out / name)
 
 
 #: The data-parallel train steps' cases: a global batch of TRAIN_BATCH
@@ -422,6 +438,7 @@ def _tp_apps(mesh, out: Path) -> None:
 
 
 CASES = {"sharded": _sharded, "fused": _fused, "runner": _runner, "ball": _ball,
+         "fused_runner": _fused_runner, "sharded_ball": _sharded_ball,
          "train": _train, "tp": _tp, "tp_apps": _tp_apps, "tp_cuda": _tp_cuda}
 #: The cases that train: autograd on (the others run under inference_mode).
 TRAINING = {"train", "tp", "tp_apps", "tp_cuda"}

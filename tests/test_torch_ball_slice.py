@@ -25,7 +25,7 @@ from padel_analytics_tpu.trackers.runner import TrackingRunner as JaxRunner
 from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.models.convert import tracknet_state_dict_from_flax
 from padel_analytics_tpu_torch.ops.median import median_background
-from padel_analytics_tpu_torch.trackers import BallTracker, FusedPipeline, TrackingRunner
+from padel_analytics_tpu_torch.trackers import BallTracker, TrackingRunner
 from padel_analytics_tpu_torch.trackers._ballwindow import median_model_resolution
 from _torch_helpers import random_jax_tracknet
 
@@ -136,9 +136,12 @@ def test_runner_refuses_unported_passes(tmp_path, rng):
     _write_clip(rng, clip, 2)
     tracker = BallTracker(None, compute_dtype=torch.float32, device="cpu",
                           config=BallTrackerConfig(height=16, width=32))
-    # The staged scan is not ported; it names its ROADMAP.md item.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedPipeline.run_staged(None)
+    # The staged scan, once refused, is taken; a negative chunk count is not.
+    assert TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
+                          fused_staged=2).fused_staged == 2
+    with pytest.raises(ValueError, match="fused_staged"):
+        TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
+                       fused_staged=-1)
     with pytest.raises(ValueError, match="association"):
         TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False, fused=True,
                        fused_association="hungarian")

@@ -154,8 +154,7 @@ def _fakes(monkeypatch, players_cls, pose_cls, ball_cls, players_config, ball_co
     monkeypatch.setattr(ball_cls, "__init__", ball)
 
 
-@pytest.fixture()
-def port_fakes(monkeypatch):
+def _port_fakes(monkeypatch):
     from padel_analytics_tpu_torch.config import BallTrackerConfig, PlayersTrackerConfig
     from padel_analytics_tpu_torch.trackers import (
         BallTracker,
@@ -169,8 +168,7 @@ def port_fakes(monkeypatch):
            lambda: CellDetector(pose=False), lambda: CellDetector(pose=True), BrightTrackNet)
 
 
-@pytest.fixture()
-def jax_fakes(monkeypatch):
+def _jax_fakes(monkeypatch):
     from padel_analytics_tpu.config import BallTrackerConfig, PlayersTrackerConfig
     from padel_analytics_tpu.trackers import (
         BallTracker,
@@ -185,6 +183,16 @@ def jax_fakes(monkeypatch):
            PlayersTrackerConfig(imgsz=IMGSZ, model_variant="n", batch_size=8),
            BallTrackerConfig(height=72, width=128, batch_size=8, median_max_sample_num=6),
            lambda: JaxFake(pose=False), lambda: JaxFake(pose=True), JaxFakeTrackNet)
+
+
+@pytest.fixture()
+def port_fakes(monkeypatch):
+    _port_fakes(monkeypatch)
+
+
+@pytest.fixture()
+def jax_fakes(monkeypatch):
+    _jax_fakes(monkeypatch)
 
 
 class _Args:
@@ -254,7 +262,25 @@ def _decode(path):
     return frames
 
 
-def test_validate_report_keys_equal_jax(clip, tmp_path, port_fakes, jax_fakes):
+@pytest.fixture(scope="module")
+def first_runs(clip, tmp_path_factory):
+    """{app: its build_and_run's caches} of each app's run with the fakes
+    over the clip, shared by the tests that compare the two."""
+    out = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # a module fixture runs before one_torch_thread
+    with pytest.MonkeyPatch.context() as mp:
+        _port_fakes(mp)
+        _jax_fakes(mp)
+        for app in (vw, jax_vw):
+            root = tmp_path_factory.mktemp(app.__name__.split(".")[0])
+            out[app] = app.build_and_run(_Args(clip[0], clip[1]), dict.fromkeys(app.WEIGHT_NAMES),
+                                         root)
+    torch.set_num_threads(threads)
+    return out
+
+
+def test_validate_report_keys_equal_jax(clip, tmp_path, port_fakes, jax_fakes, first_runs):
     """Both apps' reports (each against its own first run's caches) have the
     same keys at every level and the same verdicts."""
     reports = []
@@ -263,8 +289,7 @@ def test_validate_report_keys_equal_jax(clip, tmp_path, port_fakes, jax_fakes):
         weights, caches = root / "weights", root / "ref"
         weights.mkdir(parents=True)
         caches.mkdir()
-        args = _Args(clip[0], clip[1])
-        ours = app.build_and_run(args, dict.fromkeys(app.WEIGHT_NAMES), root)
+        ours = first_runs[app]
         for kind, name in app.REF_CACHE_NAMES.items():
             shutil.copy(ours[kind], caches / name)
         argv = _argv(clip, weights, caches, root / "r.json")
@@ -277,12 +302,8 @@ def test_validate_report_keys_equal_jax(clip, tmp_path, port_fakes, jax_fakes):
     assert (vw.WEIGHT_NAMES, vw.REF_CACHE_NAMES) == (jax_vw.WEIGHT_NAMES, jax_vw.REF_CACHE_NAMES)
 
 
-def test_port_caches_equal_jax_caches(clip, tmp_path, port_fakes, jax_fakes):
-    (tmp_path / "port").mkdir()
-    (tmp_path / "jax").mkdir()
-    args = _Args(clip[0], clip[1])
-    ours = vw.build_and_run(args, dict.fromkeys(vw.WEIGHT_NAMES), tmp_path / "port")
-    theirs = jax_vw.build_and_run(args, dict.fromkeys(jax_vw.WEIGHT_NAMES), tmp_path / "jax")
+def test_port_caches_equal_jax_caches(first_runs):
+    ours, theirs = first_runs[vw], first_runs[jax_vw]
     for kind in vw.REF_CACHE_NAMES:
         a = json.loads(Path(ours[kind]).read_text())
         b = json.loads(Path(theirs[kind]).read_text())

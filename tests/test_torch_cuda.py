@@ -16,10 +16,13 @@ neither JAX nor the test suite's conftest, so on the card they run as
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 import _torch_dist as td
 from _k2_cases import SMALL, dense, small
@@ -367,6 +370,97 @@ def test_fused_fast_on_card_equals_cpu(dev, kwargs):
     got = caches(FusedPipeline(*make_trackers(device=dev), chunk=8, **kwargs)
                  .run(iter(frames), N))
     assert got == want
+
+
+@pytest.mark.parametrize("ingest,chunk,superchunk", [("i420", 4, 3), ("rgb", 8, 2)])
+def test_run_staged_on_card_equals_run(dev, ingest, chunk, superchunk):
+    """run_staged on the card, one CUDA-graph replay a lane a round (the
+    graphs captured in the first run, replayed in the second), gives the
+    caches of run() on the card and of run_staged on the CPU (decisive
+    fakes: a race between the round buffers and the lanes would show)."""
+    frames = clip_frames(np.random.default_rng(25))
+    want = caches(FusedPipeline(*make_trackers(device=dev), chunk=chunk, ingest=ingest)
+                  .run(iter(frames), N))
+    cpu = caches(FusedPipeline(*make_trackers(), chunk=chunk, ingest=ingest)
+                 .run_staged(iter(frames), N, superchunk=superchunk))
+    pipe = FusedPipeline(*make_trackers(device=dev), chunk=chunk, ingest=ingest)
+    rounds = -(-(N + 7) // (chunk * superchunk))
+    for captured in (6, 0):
+        pipe.players.restart()  # ByteTrack starts afresh
+        got = caches(pipe.run_staged(iter(frames), N, superchunk=superchunk))
+        assert got == want == cpu
+        graphs = pipe.last_staged_graphs
+        assert graphs["replays"] == dict.fromkeys(("det", "pose", "ball"), rounds)
+        assert graphs["captured"] == captured and graphs["pinned_bytes"] > 0
+
+
+def test_run_staged_on_card_recaptures_changed_weights(dev):
+    """A real TrackNet (bf16, K1 and K2) on the ball: a predictor bias
+    raised (every pixel lit) and the last ConvBN's BatchNorm scale zeroed
+    (folded into K1's epilogue, which a stale graph would replay: no pixel
+    lit) in place between run_staged calls change the ball and recapture
+    the ball lane's graphs; restored, they restore it."""
+    frames = clip_frames(np.random.default_rng(26))
+    players, pose, _, court = make_trackers(device=dev)
+    ball = BallTracker(None, compute_dtype=torch.bfloat16, device=dev, config=BallTrackerConfig(
+        height=16, width=32, batch_size=4, median_max_sample_num=6))
+    ball.video_info_post_init(players.video_info)
+    model = ball.tracknet.model
+    _he_normal(model, 27)
+    pipe = FusedPipeline(players, pose, ball, court, chunk=4)
+
+    def staged():
+        return caches(pipe.run_staged(iter(frames), N, superchunk=3))["ball"]
+
+    first = staged()
+    assert any(b["visibility"] for b in json.loads(first))
+    for param, change in ((model.predictor.bias, lambda t: t.add_(50.0)),
+                          (model.up_block_3.conv_2.bn.weight, lambda t: t.zero_())):
+        saved = param.detach().clone()
+        with torch.no_grad():
+            change(param)
+        changed = staged()
+        assert changed != first and pipe.last_staged_graphs["captured"] == 2
+        with torch.no_grad():
+            param.copy_(saved)
+        assert staged() == first
+
+
+def test_fast_tracknet_on_card_equals_tracknet(dev):
+    """FastTrackNet over the Flax tree of a He-normal TrackNet on the card:
+    17 K1 launches a forward; equal to the TrackNet module's own K1 stacks
+    followed by the same fp32 predictor, and within the JAX package's bf16
+    bound (2e-2) of the module's output, whose predictor rounds the logits
+    to bf16."""
+    from padel_analytics_tpu_torch.models import FastTrackNet
+    from padel_analytics_tpu_torch.models.convert import flax_from_state_dict
+    from padel_analytics_tpu_torch.models.layers import max_pool_2x2, upsample_nearest_2x
+    from padel_analytics_tpu_torch.models.tracknet import make_tracknet
+    from padel_analytics_tpu_torch.ops._fp32 import no_tf32
+
+    model, in_dim = make_tracknet(8, "concat")
+    _he_normal(model, 28)
+    tree = flax_from_state_dict(model.state_dict())
+    model.to(dev).eval()
+    x = torch.rand((2, 48, 64, in_dim), generator=torch.Generator().manual_seed(29)).to(
+        dev, torch.bfloat16)
+    before = conv3x3.launches
+    with torch.inference_mode():
+        got = FastTrackNet(8, torch.bfloat16, dev).apply(tree, x)
+        assert conv3x3.launches - before == 17
+        x1 = model.down_block_1(x)
+        x2 = model.down_block_2(max_pool_2x2(x1))
+        x3 = model.down_block_3(max_pool_2x2(x2))
+        y = model.bottleneck(max_pool_2x2(x3))
+        y = model.up_block_3(model.up_block_2(model.up_block_1(y, x3), x2), x1)
+        w = model.predictor.weight.to(torch.bfloat16).float()
+        with no_tf32():
+            logits = F.conv2d(y.float().permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+        want = torch.sigmoid(logits + model.predictor.bias.float())
+        module = model(x)
+    assert got.dtype == torch.float32 and got.shape == (2, 48, 64, 8)
+    assert torch.equal(got, want)
+    assert float((got - module).abs().max()) < 2e-2
 
 
 # ResNet-50 logits, bf16 on the card against fp32 on the CPU, over their

@@ -234,17 +234,6 @@ def test_staging_ring_reuses_slots():
     assert up.shape == (2, 4, 6, 3) and int(up.sum()) == 7 * up.numel()
 
 
-def _left_for_later():
-    pipe = FusedPipeline(*make_trackers())
-    return {"run_staged": lambda: pipe.run_staged(iter([]), 0)}
-
-
-@pytest.mark.parametrize("item", sorted(_left_for_later()))
-def test_unported_modes_raise(item):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _left_for_later()[item]()
-
-
 def _formerly_unported(tmp_path, name):
     """(trackers, FusedPipeline keyword arguments) of a mode that raised
     NotImplementedError before it was ported."""
@@ -268,13 +257,16 @@ def _formerly_unported(tmp_path, name):
 
 
 @pytest.mark.parametrize("name", ["derived ingest", "ball_stride=seq_len", "model-based court",
-                                  "InpaintNet", "device association"])
+                                  "InpaintNet", "device association", "run_staged"])
 def test_formerly_unported_modes_run(rng, tmp_path, name):
     """The modes that raised NotImplementedError before they were ported
     now run: one result a frame for every tracker."""
     trackers, kwargs = _formerly_unported(tmp_path, name)
     pipe = FusedPipeline(*trackers, chunk=8, **kwargs)
-    out = pipe.run(iter(clip_frames(rng)), N)
+    if name == "run_staged":
+        out = pipe.run_staged(iter(clip_frames(rng)), N, superchunk=2)
+    else:
+        out = pipe.run(iter(clip_frames(rng)), N)
     assert {k: len(v) for k, v in out.items()} == dict.fromkeys(
         ("players", "players_keypoints", "ball", "keypoints"), N)
     assert pipe.ingest == kwargs.get("ingest", "rgb")
@@ -312,6 +304,7 @@ def test_runner_checks_the_ball_stride(rng, tmp_path, kwargs, match):
 def test_runner_fused_defaults():
     params = inspect.signature(TrackingRunner).parameters
     assert {k: params[k].default for k in ("fused_chunk", "fused_ingest", "fused_association",
-                                           "fused_ball_stride", "fused_wire_long_side")} == {
+                                           "fused_ball_stride", "fused_wire_long_side",
+                                           "fused_staged")} == {
         "fused_chunk": 16, "fused_ingest": "i420", "fused_association": "auto",
-        "fused_ball_stride": 1, "fused_wire_long_side": 960}
+        "fused_ball_stride": 1, "fused_wire_long_side": 960, "fused_staged": 0}

@@ -49,7 +49,7 @@ from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.trackers import BallTracker, FusedPipeline, TrackingRunner
 from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
 from test_torch_court_models import _jax_court, assert_courts_equal, court_pair
-from test_torch_fused_jax import _jax_trackers
+from test_torch_fused_jax import jax_trackers  # noqa: F401  (a module fixture)
 from test_torch_inpaint import write_checkpoint
 
 INGESTS = [{"ingest": "rgb"}, {"ingest": "derived", "wire_long_side": 64}]
@@ -98,10 +98,10 @@ def test_fused_court_equals_per_tracker(rng, mode):
 
 @pytest.mark.parametrize("kwargs", INGESTS, ids=["rgb", "derived"])
 @pytest.mark.parametrize("mode", ["yolo", "resnet"])
-def test_fused_court_equals_jax_fused(rng, mode, kwargs):
+def test_fused_court_equals_jax_fused(rng, jax_trackers, mode, kwargs):  # noqa: F811
     frames = court_clip(rng)
     jax_court, court = court_pair(rng, mode, frames)
-    players, pose, ball, _ = _jax_trackers()
+    players, pose, ball, _ = jax_trackers()
     want = JaxFusedPipeline(players, pose, ball, jax_court, chunk=4, **kwargs).run(
         iter(frames), N)
     pipe = FusedPipeline(*make_trackers(court=False)[:3], court, chunk=4, **kwargs)
@@ -128,7 +128,8 @@ def _assert_balls_equal_but_at_edges(got, want):
 
 
 @pytest.mark.parametrize("kwargs", INGESTS, ids=["rgb", "derived"])
-def test_fused_inpaint_equals_per_tracker_and_jax(rng, tmp_path, kwargs):
+def test_fused_inpaint_equals_per_tracker_and_jax(rng, tmp_path, jax_trackers,  # noqa: F811
+                                                  kwargs):
     frames = court_clip(rng)
     write_checkpoint(rng, tmp_path / "inpaint.pt")
     ball = _port_ball(tmp_path / "inpaint.pt")
@@ -138,7 +139,7 @@ def test_fused_inpaint_equals_per_tracker_and_jax(rng, tmp_path, kwargs):
                         **kwargs).run(iter(frames), N)
     if kwargs["ingest"] == "rgb":
         assert caches({"b": out["ball"]}) == caches({"b": sep})
-    jplayers, jpose, _, jcourt = _jax_trackers()
+    jplayers, jpose, _, jcourt = jax_trackers()
     want = JaxFusedPipeline(jplayers, jpose, _jax_ball(tmp_path / "inpaint.pt"), jcourt,
                             chunk=4, **kwargs).run(iter(frames), N)
     _assert_balls_equal_but_at_edges(out["ball"], want["ball"])

@@ -41,7 +41,7 @@ from padel_analytics_tpu_torch.trackers import BallTracker, FusedPipeline
 from padel_analytics_tpu_torch.utils.video import VideoInfo
 from test_torch_ball_slice import JaxFakeTrackNet, PortFakeTrackNet
 from test_torch_fused import BgTrackNet
-from test_torch_fused_jax import _jax_trackers
+from test_torch_fused_jax import _jax_trackers, jax_trackers  # noqa: F401  (a module fixture)
 
 FAST = [("derived", 64, 1), ("derived", 96, 1), ("rgb", 960, 8), ("i420", 960, 8),
         ("derived", 64, 8), ("derived", 96, 8)]
@@ -49,9 +49,9 @@ FAST = [("derived", 64, 1), ("derived", 96, 1), ("rgb", 960, 8), ("i420", 960, 8
 
 @pytest.mark.parametrize("ingest,wire,stride", FAST,
                          ids=[f"{i}-{w}-stride{s}" for i, w, s in FAST])
-def test_fast_modes_equal_jax_fused(rng, ingest, wire, stride):
+def test_fast_modes_equal_jax_fused(rng, jax_trackers, ingest, wire, stride):  # noqa: F811
     frames = clip_frames(rng)
-    want = caches(JaxFusedPipeline(*_jax_trackers(), chunk=8, ingest=ingest,
+    want = caches(JaxFusedPipeline(*jax_trackers(), chunk=8, ingest=ingest,
                                    wire_long_side=wire, ball_stride=stride)
                   .run(iter(frames), N))
     pipe = FusedPipeline(*make_trackers(), chunk=8, ingest=ingest, wire_long_side=wire,
@@ -78,10 +78,10 @@ def test_derived_subtract_mode_equals_jax(rng, wire):
     """The subtract mode's median, INTER_AREA-downscaled to the wire as the
     frames are, gives the JAX package's ball cache byte for byte."""
     frames = clip_frames(rng)
-    jax_trackers = _jax_trackers()
-    jax_trackers[2].bg_mode = "subtract"
-    jax_trackers[2].tracknet.model = _JaxSubNet()
-    want = caches(JaxFusedPipeline(*jax_trackers, chunk=8, ingest="derived",
+    jax_set = _jax_trackers()  # its own: the ball's mode and model change
+    jax_set[2].bg_mode = "subtract"
+    jax_set[2].tracknet.model = _JaxSubNet()
+    want = caches(JaxFusedPipeline(*jax_set, chunk=8, ingest="derived",
                                    wire_long_side=wire).run(iter(frames), N))
     trackers = make_trackers()
     trackers[2].bg_mode = "subtract"
@@ -156,9 +156,9 @@ def test_sequential_nonoverlap_equals_jax_and_stride1(rng, n):
     assert fast == _sequential(frames, 1, port=True)
 
 
-def test_wire_geometry_and_bytes_match_jax():
+def test_wire_geometry_and_bytes_match_jax(jax_trackers):  # noqa: F811
     port = FusedPipeline(*make_trackers(), ingest="derived", wire_long_side=64)
-    jax = JaxFusedPipeline(*_jax_trackers(), ingest="derived", wire_long_side=64)
+    jax = JaxFusedPipeline(*jax_trackers(), ingest="derived", wire_long_side=64)
     for src in ((H, W), (97, 129), (1080, 1920), (720, 1280), (1081, 1921), (40, 30), (61, 63)):
         port._check_ingest(src)
         jax._check_ingest(src)
@@ -173,11 +173,11 @@ def test_wire_geometry_and_bytes_match_jax():
 
 @pytest.mark.parametrize("kwargs,match", [({"ball_stride": 3}, "ball_stride"),
                                           ({"ball_stride": 8, "chunk": 12}, "chunk % seq_len")])
-def test_validation_errors_match_jax(kwargs, match):
+def test_validation_errors_match_jax(jax_trackers, kwargs, match):  # noqa: F811
     with pytest.raises(ValueError, match=match):
         FusedPipeline(*make_trackers(), **kwargs)
     with pytest.raises(ValueError, match=match):
-        JaxFusedPipeline(*_jax_trackers(), **kwargs)
+        JaxFusedPipeline(*jax_trackers(), **kwargs)
 
 
 def test_window_stride_config_validation():

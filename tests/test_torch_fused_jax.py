@@ -60,10 +60,25 @@ def _jax_trackers():
     return players, pose, ball, court
 
 
+@pytest.fixture(scope="module")
+def jax_trackers():
+    """`_jax_trackers()` built once for the module (a build compiles two
+    YOLOv8n inits, seconds each); each call hands them out restarted
+    (results and ByteTrack), for a test that does not change them."""
+    trackers = _jax_trackers()
+
+    def restarted():
+        for t in trackers:
+            t.restart()
+        return trackers
+
+    return restarted
+
+
 @pytest.mark.parametrize("ingest", ["rgb", "i420"])
-def test_fused_equals_jax_fused(rng, ingest):
+def test_fused_equals_jax_fused(rng, jax_trackers, ingest):
     frames = clip_frames(rng)
-    want = caches(JaxFusedPipeline(*_jax_trackers(), chunk=8, ingest=ingest)
+    want = caches(JaxFusedPipeline(*jax_trackers(), chunk=8, ingest=ingest)
                   .run(iter(frames), N))
     pipe = FusedPipeline(*make_trackers(), chunk=8, ingest=ingest)
     got = caches(pipe.run(iter(frames), N))

@@ -32,7 +32,7 @@ from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.parallel import init_distributed, make_mesh
 from padel_analytics_tpu_torch.trackers import FusedPipeline, TrackingRunner
 from padel_analytics_tpu_torch.utils.video import MemoryClip
-from test_torch_fused_jax import _jax_trackers
+from test_torch_fused_jax import jax_trackers  # noqa: F401  (a module fixture)
 
 WORLDS = (1, 2)
 CHUNK = 4
@@ -44,14 +44,19 @@ def _frames():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{(case, world): [each rank's output directory]}."""
-    return {(case, world): td.spawn(case, world, tmp_path_factory.mktemp(f"{case}{world}"))
-            for case in ("fused", "runner") for world in WORLDS}
+    """{(case, world): [each rank's output directory]}, both cases from one
+    child run per world size."""
+    out = {}
+    for world in WORLDS:
+        dirs = td.spawn("fused_runner", world, tmp_path_factory.mktemp(f"mesh{world}"))
+        for case in ("fused", "runner"):
+            out[case, world] = [d / case for d in dirs]
+    return out
 
 
 @pytest.fixture(scope="module")
-def jax_mesh_caches():
-    return {world: caches(JaxFusedPipeline(*_jax_trackers(), chunk=CHUNK)
+def jax_mesh_caches(jax_trackers):  # noqa: F811
+    return {world: caches(JaxFusedPipeline(*jax_trackers(), chunk=CHUNK)
                           .run_mesh(iter(_frames()), N, jax_make_mesh(data=world)))
             for world in WORLDS}
 

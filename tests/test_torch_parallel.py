@@ -40,6 +40,7 @@ from padel_analytics_tpu_torch.parallel import (
 )
 
 WORLDS = (1, 2, 4)
+BALL_WORLDS = (1, 2)  # BallTracker(mesh=...)'s world sizes
 
 
 class JaxMaxTrackNet:
@@ -56,12 +57,21 @@ class JaxMaxTrackNet:
 
 
 @pytest.fixture(scope="module")
-def port_results(tmp_path_factory):
-    """{world: [each rank's {case: (3, N) int32}]} from one child run per
-    world size."""
+def children(tmp_path_factory):
+    """{world: [each rank's output directory]} from one child run per world
+    size: the sharded and the ball cases together where port_balls takes
+    the world too (1 and 2 ranks), the sharded alone at 4."""
+    return {world: td.spawn("sharded_ball" if world in BALL_WORLDS else "sharded", world,
+                            tmp_path_factory.mktemp(f"ranks{world}"))
+            for world in WORLDS}
+
+
+@pytest.fixture(scope="module")
+def port_results(children):
+    """{world: [each rank's {case: (3, N) int32}]}."""
     out = {}
-    for world in WORLDS:
-        dirs = td.spawn("sharded", world, tmp_path_factory.mktemp(f"sharded{world}"))
+    for world, dirs in children.items():
+        dirs = [d / "sharded" if world in BALL_WORLDS else d for d in dirs]
         out[world] = [{case: np.load(d / f"{case[0]}_{case[1]}.npy") for case in td.SHARDED_CASES}
                       for d in dirs]
     return out
@@ -81,11 +91,11 @@ def test_sharded_window_inference_bit_equal_to_jax(port_results, world, bg_mode,
 
 
 @pytest.fixture(scope="module")
-def port_balls(tmp_path_factory):
+def port_balls(children):
     """{world: [each rank's {(n, stride): ball JSON}]}."""
     out = {}
-    for world in (1, 2):
-        dirs = td.spawn("ball", world, tmp_path_factory.mktemp(f"ball{world}"))
+    for world in BALL_WORLDS:
+        dirs = [d / "ball" for d in children[world]]
         out[world] = [{case: json.loads((d / f"ball_{case[0]}_{case[1]}.json").read_text())
                        for case in td.BALL_CASES} for d in dirs]
     return out
@@ -129,7 +139,7 @@ def _single_ball(fake, n, stride):
     return got
 
 
-@pytest.mark.parametrize("world", (1, 2))
+@pytest.mark.parametrize("world", BALL_WORLDS)
 @pytest.mark.parametrize("n,stride", td.BALL_CASES)
 def test_ball_tracker_mesh_equals_jax_and_single_device(port_balls, single_balls, world, n,
                                                         stride):
