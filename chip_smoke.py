@@ -165,22 +165,28 @@ is printed):
    reference's formats by training/checkpoint.py (YOLOv8m detect and
    YOLOv8m-pose with 13 keypoints, cls heads calibrated; TrackNet with its
    param_dict; InpaintNet; ResNet-50 under torchvision names), each
-   converted by apps.convert_weights to the JAX package's .msgpack and read
-   back through core/checkpoint.py: every tensor bit-equal to the .pt's,
-   the read ms of each format printed; (b) the main path,
-   TrackingRunner(fused=True, render=False, collect_data=True) at the
-   reference plan with InpaintNet on the ball, on a 48-frame 1920x1080
-   rally, once with the trackers loaded from the .pt files and once from
-   the .msgpack files: the caches and data.csv byte-equal, the launch
-   counters zeroed before and read after the .msgpack pass (the kernels
-   line's 'validate'), frames/s of each; (c) apps.validate_weights (its
+   converted by apps.convert_weights to the JAX package's .msgpack and to
+   its orbax checkpoint directory and read back through core/checkpoint.py:
+   every tensor bit-equal to the .pt's, the read ms of each format printed;
+   (b) the main path, TrackingRunner(fused=True, render=False,
+   collect_data=True) at the reference plan with InpaintNet on the ball, on
+   a 48-frame 1920x1080 rally, with the trackers loaded from the .pt files,
+   from the .msgpack files and from the orbax directories: the caches and
+   data.csv byte-equal, the launch counters zeroed before and read after
+   each pass (the kernels line's 'validate' and 'validate_orbax'),
+   frames/s of each; (c) apps.validate_weights (its
    main, with the clip in memory) on the .pt files against reference caches
    from the per-tracker paths (batch = the fused chunk, on the frames the
    i420 ingest delivers): within_1px_verdict true, max_px_overall printed;
    with --fast-path, the fast plan's max px against the reference plan per
-   tracker (random weights); (d) compare_predictions over (b)'s two runs
-   (0 px), and BallVelocityEstimator and detect_hits over (b)'s results:
-   one estimate's m/s, the hit count and their host ms;
+   tracker (random weights); (d) compare_predictions over (b)'s .pt and
+   .msgpack runs (0 px), and BallVelocityEstimator and detect_hits over
+   (b)'s results: one estimate's m/s, the hit count and their host ms; (e)
+   the committed JAX-written orbax directory (tests/data_torch/orbax_jax/,
+   OCDBT + zstd) read on the host through the zstd decoder built from
+   csrc/zstd_decode.c by the host C compiler: every leaf's sha256 equal to
+   tests/data_torch/orbax_jax.sha256.json, the decoder's build seconds and
+   MB/s printed;
 19. the mesh's model axis (conv-channel tensor parallelism), fp32 with TF32
    off: (a) two processes on the card joined by gloo (the phase's choice:
    NCCL refuses two ranks on one card), a data 1 x model 2 mesh; each family
@@ -331,6 +337,7 @@ from padel_analytics_tpu_torch.utils.video import MemoryClip, VideoInfo
 # can change a cache) are the port's tests' own; that module imports no JAX.
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from _torch_fused_cases import BrightTrackNet, CellDetector  # noqa: E402
+import _torch_orbax_cases as orbax_cases  # noqa: E402
 import _torch_tools_cases as tools_cases  # noqa: E402
 
 # TrackNet at 288x512: (Cin, Cout, H, W) of its 17 stride-1 3x3 ConvBNs, in
@@ -2825,7 +2832,8 @@ VALIDATE_FRAMES = 48
 #: (keypoints 0, 1, -1, -2) is the players' gate of the other phases.
 VALIDATE_KEYPOINTS = [(200, 1100), (1720, 1100), *COURT_KEYPOINTS[2:]]
 #: (name, the convert_weights kind and flags) of each family written in the
-#: reference's format and converted to the JAX package's .msgpack.
+#: reference's format and converted to the JAX package's .msgpack and orbax
+#: directory.
 WEIGHT_FAMILIES = {
     "players": ["yolo", "--variant", "m"],
     "pose": ["yolo", "--variant", "m", "--keypoints", "13"],
@@ -2859,15 +2867,16 @@ def write_weights(root: Path, frames) -> dict:
     root/pt (YOLOv8m detect and YOLOv8m-pose with 13 keypoints, their cls
     heads calibrated on `frames`; TrackNet with its param_dict; InpaintNet;
     ResNet-50 under torchvision names; training/checkpoint.py's save_*),
-    each converted by apps.convert_weights to root/msgpack and read back:
-    every tensor bit-equal to the .pt's. Returns {name: (pt, msgpack)} and
-    prints the read ms of each format."""
+    each converted by apps.convert_weights to root/msgpack/<name>.msgpack
+    and to the orbax directory root/orbax/<name> and read back: every tensor
+    bit-equal to the .pt's. Returns {name: (pt, msgpack, orbax)} and prints
+    the read ms of each format."""
     from padel_analytics_tpu_torch.apps import convert_weights
     from padel_analytics_tpu_torch.models.convert import load_flax_state_dict
     from padel_analytics_tpu_torch.training import checkpoint as tckpt
 
-    (root / "pt").mkdir()
-    (root / "msgpack").mkdir()
+    for fmt in ("pt", "msgpack", "orbax"):
+        (root / fmt).mkdir()
     players = PlayerTracker(None, polygon_zone=PolygonZone(COURT_POLYGON, (1920, 1080)),
                             config=PlayersTrackerConfig())
     pose = PlayerKeypointsTracker(None, config=PlayerKeypointsTrackerConfig())
@@ -2885,35 +2894,39 @@ def write_weights(root: Path, frames) -> dict:
     paths, reads = {}, {}
     for name, (save, model) in models.items():
         pt, msg = root / "pt" / f"{name}.pt", root / "msgpack" / f"{name}.msgpack"
+        orb = root / "orbax" / name
         save(pt, model)
-        with contextlib.redirect_stdout(io.StringIO()):
-            check(convert_weights.main([WEIGHT_FAMILIES[name][0], str(pt), str(msg),
-                                        *WEIGHT_FAMILIES[name][1:]]) == 0,
-                  f"convert_weights {name}")
+        for out in (msg, orb):
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(convert_weights.main([WEIGHT_FAMILIES[name][0], str(pt), str(out),
+                                            *WEIGHT_FAMILIES[name][1:]]) == 0,
+                      f"convert_weights {name} -> {out.name}")
         t0 = time.perf_counter()
         want = _pt_state_dict(name, pt)
-        pt_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        got = load_flax_state_dict(msg)
-        msg_ms = (time.perf_counter() - t0) * 1e3
+        reads[name] = {"pt_ms": round((time.perf_counter() - t0) * 1e3, 1)}
         keys = {k for k in want if not k.endswith("num_batches_tracked")}
-        check(keys == {k for k in got if not k.endswith("num_batches_tracked")},
-              f"{name}: the .msgpack's names differ from the .pt's")
-        bad = [k for k in keys if not torch.equal(got[k], want[k].float())]
-        check(not bad, f"{name}: .msgpack tensors differ from the .pt's: {bad[:5]}")
-        paths[name] = (pt, msg)
-        reads[name] = {"pt_ms": round(pt_ms, 1), "msgpack_ms": round(msg_ms, 1),
-                       "msgpack_MB": round(msg.stat().st_size / 2**20, 1), "tensors": len(keys)}
+        for fmt, path in (("msgpack", msg), ("orbax", orb)):
+            t0 = time.perf_counter()
+            got = load_flax_state_dict(path)
+            reads[name][f"{fmt}_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+            check(keys == {k for k in got if not k.endswith("num_batches_tracked")},
+                  f"{name}: the {fmt} names differ from the .pt's")
+            bad = [k for k in keys if not torch.equal(got[k], want[k].float())]
+            check(not bad, f"{name}: {fmt} tensors differ from the .pt's: {bad[:5]}")
+        size = sum(p.stat().st_size for p in orb.rglob("*") if p.is_file())
+        paths[name] = (pt, msg, orb)
+        reads[name].update({"msgpack_MB": round(msg.stat().st_size / 2**20, 1),
+                            "orbax_MB": round(size / 2**20, 1), "tensors": len(keys)})
     print(f"weights (a): five families written in the reference's formats, converted by "
-          f"apps.convert_weights, read back bit-equal; read ms by format {json.dumps(reads)}; "
-          f"calibration {calib}")
+          f"apps.convert_weights to .msgpack and orbax directories (plain layout), read back "
+          f"bit-equal; read ms by format (host) {json.dumps(reads)}; calibration {calib}")
     return paths
 
 
 def _validate_trackers(paths: dict, which: int, cache_dir: Path, batch: int = 8) -> list:
     """The reference plan's four trackers with the written weights (which:
-    0 the .pt files, 1 the .msgpack files), caching under cache_dir with
-    validate_weights' reference-cache names."""
+    0 the .pt files, 1 the .msgpack files, 2 the orbax directories), caching
+    under cache_dir with validate_weights' reference-cache names."""
     from padel_analytics_tpu_torch.apps.validate_weights import REF_CACHE_NAMES
 
     def weights(name):
@@ -2930,11 +2943,14 @@ def _validate_trackers(paths: dict, which: int, cache_dir: Path, batch: int = 8)
 
 
 def phase_weights_validate(smi: str) -> dict:
-    """Phase 18: (a) the weights in the reference's formats and the JAX
-    package's .msgpack; (b) the main path from each, caches and data.csv
-    byte-equal, K1 and K2 launched; (c) apps.validate_weights against the
-    port's per-tracker caches; (d) compare_predictions over (b) and the
-    ball's velocity and hits. Returns (b)'s .msgpack launch counts."""
+    """Phase 18: (a) the weights in the reference's formats, the JAX
+    package's .msgpack and its orbax directories; (b) the main path from
+    each, caches and data.csv byte-equal, K1 and K2 launched; (c)
+    apps.validate_weights against the port's per-tracker caches; (d)
+    compare_predictions over (b) and the ball's velocity and hits; (e) the
+    committed JAX-written orbax directory through the zstd decoder. Returns
+    (b)'s launch counts from the .msgpack ('validate') and orbax
+    ('validate_orbax') passes."""
     from padel_analytics_tpu_torch.analytics.velocity_estimator import (
         BallVelocityEstimator,
         ImpactType,
@@ -2952,18 +2968,18 @@ def phase_weights_validate(smi: str) -> dict:
         tmp = Path(tmp)
         paths = write_weights(tmp, frames)
 
-        # (b) the main path from the .pt files and from the .msgpack files,
-        # passes in turns (pt, msgpack, msgpack, pt); the launch counters
-        # zeroed before and read after each.
+        # (b) the main path from the .pt files, the .msgpack files and the
+        # orbax directories, passes in turns (pt, msgpack, orbax, orbax,
+        # msgpack, pt); the launch counters zeroed before and read after each.
         runners, runs = {}, {}
-        for which, fmt in enumerate(("pt", "msgpack")):
+        for which, fmt in enumerate(("pt", "msgpack", "orbax")):
             cache = tmp / f"run_{fmt}"
             cache.mkdir()
             runners[fmt] = (TrackingRunner(_validate_trackers(paths, which, cache), clip,
                                            tmp / "unused.mp4", fused=True,
                                            fused_chunk=FUSED_CHUNK, render=False,
                                            collect_data=True), cache)
-        for fmt in ("pt", "msgpack", "msgpack", "pt"):
+        for fmt in ("pt", "msgpack", "orbax", "orbax", "msgpack", "pt"):
             runner, cache = runners[fmt]
             conv3x3.reset_launches()
             heatmap.reset_launches()
@@ -2981,20 +2997,23 @@ def phase_weights_validate(smi: str) -> dict:
             else:
                 runs[fmt] = {"fps": [n / seconds], "csv": csv, "files": files,
                              "counts": counts, "runner": runner}
-        for kind in REF_CACHE_NAMES:
-            check(runs["pt"]["files"][kind] == runs["msgpack"]["files"][kind],
-                  f"weights (b): the {kind} cache from .msgpack differs from the .pt run's")
-        check(runs["pt"]["csv"] == runs["msgpack"]["csv"],
-              "weights (b): data.csv from .msgpack differs from the .pt run's")
+        for fmt in ("msgpack", "orbax"):
+            for kind in REF_CACHE_NAMES:
+                check(runs["pt"]["files"][kind] == runs[fmt]["files"][kind],
+                      f"weights (b): the {kind} cache from {fmt} differs from the .pt run's")
+            check(runs["pt"]["csv"] == runs[fmt]["csv"],
+                  f"weights (b): data.csv from {fmt} differs from the .pt run's")
         found = {k: sum(map(len, json.loads(v))) if k != "ball" else
                  sum(b["visibility"] for b in json.loads(v))
                  for k, v in runs["pt"]["files"].items()}
         print(f"weights (b) ({smi}): the main path (fused i420 + collect, reference plan, "
               f"InpaintNet on the ball) on a {n}-frame 1920x1080 rally, passes in turns: from "
               f".pt {' and '.join(f'{v:.1f}' for v in runs['pt']['fps'])} frames/s, from "
-              f".msgpack {' and '.join(f'{v:.1f}' for v in runs['msgpack']['fps'])} frames/s; "
-              f"caches and data.csv byte-equal across all four passes; launches a pass "
-              f"{runs['msgpack']['counts']}; found {found}")
+              f".msgpack {' and '.join(f'{v:.1f}' for v in runs['msgpack']['fps'])} frames/s, "
+              f"from orbax {' and '.join(f'{v:.1f}' for v in runs['orbax']['fps'])} frames/s; "
+              f"caches and data.csv byte-equal across all six passes; launches a pass: "
+              f".msgpack {runs['msgpack']['counts']}, orbax {runs['orbax']['counts']}; "
+              f"found {found}")
 
         # (d) compare_predictions over (b)'s two runs, the ball's velocity
         # and hits over its results.
@@ -3084,7 +3103,36 @@ def phase_weights_validate(smi: str) -> dict:
               f"weights: max_px_vs_parity {fast['max_px_vs_parity']}, per tracker {fast_px}, "
               f"within_bound_verdict (5 px) {fast['within_bound_verdict']}; wall {wall_s:.1f} s "
               "(both plans, models built)")
-    return runs["msgpack"]["counts"]
+    phase_orbax_fixture(smi)
+    return {"validate": runs["msgpack"]["counts"], "validate_orbax": runs["orbax"]["counts"]}
+
+
+#: 18 (e): passes of the decoder over the fixture's chunks (0.4 MiB each).
+ORBAX_DECODE_REPEATS = 100
+
+
+def phase_orbax_fixture(smi: str) -> None:
+    """18 (e): the committed JAX-written orbax directory
+    (tests/data_torch/orbax_jax/: OCDBT, zstd-compressed zarr, a float32
+    leaf in a data file, bfloat16, a list), which this host has no orbax to
+    write, read through the decoder built here from csrc/zstd_decode.c by
+    the host C compiler: every leaf's sha256 equal to the digest file's;
+    the decoder's build seconds and its MB/s over the fixture's chunks."""
+    from padel_analytics_tpu_torch.core.checkpoint import load_checkpoint
+
+    _build.host_library("zstd_decode")
+    build_s = _build.build_log["zstd_decode"]["seconds"]
+    tree = load_checkpoint(orbax_cases.FIXTURE)
+    got = {k: orbax_cases.digest(v) for k, v in orbax_cases.leaves(tree).items()}
+    want = json.loads(orbax_cases.DIGESTS.read_text())
+    check(got == want, f"orbax fixture: leaves differ from the digests: "
+          f"{sorted(k for k in want if got.get(k) != want[k])}")
+    rate = orbax_cases.decoder_rate(orbax_cases.FIXTURE, repeats=ORBAX_DECODE_REPEATS)
+    print(f"weights (e) (host of {smi}): the committed JAX-written orbax directory, {len(got)} "
+          f"leaves equal to their sha256 digests; zstd decoder built in {build_s:.2f} s "
+          f"(cc -O2), the directory read in {rate['load_ms']:.1f} ms, the decoder alone "
+          f"{rate['MB_per_s']:.1f} MB/s over {rate['chunks']} chunks "
+          f"({rate['decoded_MB']:.1f} MB decoded from {rate['compressed_MB']:.1f} MB)")
 
 
 # --------------------------------------------------- phase 19: the model axis
@@ -4025,7 +4073,7 @@ def main() -> None:
         torch.distributed.destroy_process_group()
     phase_train(dev, smi)
     by_path.update(phase_train_serve(smi))
-    by_path["validate"] = phase_weights_validate(smi)
+    by_path.update(phase_weights_validate(smi))
     by_path["model_axis"] = phase_model_axis(dev, smi)
     tools = phase_tools(smi)
     by_path.update(tools["launches_by_path"])

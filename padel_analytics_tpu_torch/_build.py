@@ -1,12 +1,16 @@
-"""Build the package's CUDA kernels at first use and load them with ctypes.
+"""Build the package's CUDA kernels and its host C code at first use and
+load them with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, in ``_build/`` beside this
-file (listed in ``.gitignore``). The library is named after a content hash of
-the source, of every local header it includes (``#include "..."``, followed
-recursively) and of the compiler flags, so a change to any of them gets a
-fresh build and an unchanged one is loaded from the library already there.
-Nothing here runs at import time.
+file (listed in ``.gitignore``). Each ``csrc/<name>.c`` (host code: the
+checkpoint reader's zstd decoder) is compiled the same way by the host C
+compiler, ``$CC`` or else ``cc`` (`host_library`), which needs no card and no
+CUDA toolkit. A library is named after a content hash of the source, of every
+local header it includes (``#include "..."``, followed recursively) and of
+the compiler flags, so a change to any of them gets a fresh build and an
+unchanged one is loaded from the library already there. Nothing here runs at
+import time.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; `check` raises on a non-zero
@@ -20,6 +24,7 @@ import ctypes
 import hashlib
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import threading
@@ -35,9 +40,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+#: The host C compiler's flags for ``csrc/*.c``: they enter the hash too.
+CC_FLAGS = ["-std=c99", "-O2", "-shared", "-fPIC", "-Wall"]
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_I64 = ctypes.c_int64
 # C signature of every entry point, by source file.
 SIGNATURES = {
     "conv3x3_bn_act": {
@@ -46,6 +55,15 @@ SIGNATURES = {
     "heatmap_cc": {
         "heatmap_cc_decode": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "heatmap_cc_max_active_clusters": [_I, _I, _P],
+    },
+}
+#: C signature (argument types, result type) of every host entry point.
+HOST_SIGNATURES = {
+    "zstd_decode": {
+        "zd_decompress": ([_P, _I64, _P, _I64], _I64),
+        "zd_content_size": ([_P, _I64], _I64),
+        "zd_crc32c": ([_P, _I64], ctypes.c_uint32),
+        "zd_xxh64": ([_P, _I64, ctypes.c_uint64], ctypes.c_uint64),
     },
 }
 
@@ -67,6 +85,31 @@ def _nvcc() -> str:
     if default.exists():
         return str(default)
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _cc() -> list[str]:
+    """The host C compiler: ``$CC`` (which may carry flags), else ``cc``."""
+    cc = shlex.split(os.environ.get("CC") or "cc")
+    if not cc or shutil.which(cc[0]) is None:
+        raise RuntimeError(
+            f"no host C compiler: {cc[0] if cc else '$CC'!r} not found (set CC or install cc); "
+            "the checkpoint reader builds csrc/zstd_decode.c with it")
+    return cc
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library built from ``csrc/<name>.c`` by the host C
+    compiler."""
+    key = f"host:{name}"
+    with _lock:
+        if key not in _loaded:
+            lib = ctypes.CDLL(str(_compile(name, host=True)))
+            for fn_name, (argtypes, restype) in HOST_SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _loaded[key] = lib
+        return _loaded[key]
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -104,30 +147,30 @@ def _local_sources(src: Path) -> list[Path]:
     return seen
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives: named by the
-    hash of its local sources and `NVCC_FLAGS`."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _local_sources((CSRC / f"{name}.cu").resolve()):
+def library_path(name: str, host: bool = False) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (``.c`` with `host`)
+    lives: named by the hash of its local sources and `NVCC_FLAGS`
+    (`CC_FLAGS`)."""
+    flags = CC_FLAGS if host else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _local_sources((CSRC / f"{name}.{'c' if host else 'cu'}").resolve()):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    lib_path = library_path(name)
+def _compile(name: str, host: bool = False) -> Path:
+    src = CSRC / f"{name}.{'c' if host else 'cu'}"
+    lib_path = library_path(name, host)
     if lib_path.exists():
         build_log.setdefault(name, {"seconds": 0.0, "ptxas": "(cached build)"})
         return lib_path
+    compiler = [*_cc(), *CC_FLAGS] if host else [_nvcc(), *NVCC_FLAGS]
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.run([*compiler, "-o", str(tmp), str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{compiler[0]} failed for {src.name}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
     build_log[name] = {
         "seconds": time.perf_counter() - t0,

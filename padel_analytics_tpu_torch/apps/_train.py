@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from ..models.layers import lecun_normal_
+from ..models.layers import truncated_lecun_normal_
 from ..parallel.mesh import Mesh, init_distributed, make_mesh
 from ..parallel.tensor_parallel import gather_params, shard_params_for_tp
 
@@ -58,8 +58,9 @@ def setup(args) -> tuple[torch.device, Optional[Mesh]]:
 
 
 def init_weights(model, seed: int = 0):
-    """The apps' random start: LeCun-normal weights from a seeded generator."""
-    return lecun_normal_(model, torch.Generator().manual_seed(seed))
+    """The apps' random start: Flax's default init, the truncated LeCun
+    normal that the JAX apps start from, drawn from a seeded generator."""
+    return truncated_lecun_normal_(model, torch.Generator().manual_seed(seed))
 
 
 def shard(n: int, mesh: Optional[Mesh]) -> slice:

@@ -1,5 +1,6 @@
-"""Convert reference torch checkpoints to the JAX package's Flax .msgpack
-weights.
+"""Convert reference torch checkpoints to the JAX package's weights: a Flax
+.msgpack file, or for an OUT with any other name an orbax checkpoint
+directory.
 
 Counterpart of ``padel_analytics_tpu/apps/convert_weights.py``, with its
 command line:
@@ -15,7 +16,7 @@ its trackers use) into the port's model of that kind, which checks every
 name and shape; the model's weights are written as the ``{'params',
 'batch_stats'}`` tree the JAX package's `_engine.load_variables` builds for
 the same model (`flax_from_state_dict`, core/checkpoint.py). The port's
-trackers and the JAX package's both load the file. YOLOv8's class count is
+trackers and the JAX package's both load it. YOLOv8's class count is
 read from the checkpoint's cls head (80 for stock COCO weights); a
 `--classes` that disagrees exits. `--imgsz` is the JAX CLI's (it sizes the
 Flax init there): the weights do not depend on it.
@@ -31,7 +32,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="convert_weights")
     parser.add_argument("kind", choices=["tracknet", "inpaintnet", "resnet", "yolo"])
     parser.add_argument("input")
-    parser.add_argument("output")
+    parser.add_argument("output", help="a .msgpack file, or any other path for an orbax "
+                        "checkpoint directory (must not exist)")
     parser.add_argument("--variant", default="m")
     parser.add_argument("--keypoints", type=int, default=0)
     parser.add_argument("--imgsz", type=int, default=640)

@@ -28,7 +28,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="evaluate")
     parser.add_argument("--images", required=True)
     parser.add_argument("--labels", required=True)
-    parser.add_argument("--weights", required=True)
+    parser.add_argument("--weights", required=True,
+                        help="a YOLOv8 .pt / .pth, a .msgpack or an orbax checkpoint directory")
     parser.add_argument("--variant", default="n")
     parser.add_argument("--imgsz", type=int, default=640)
     parser.add_argument("--classes", type=int, default=1)

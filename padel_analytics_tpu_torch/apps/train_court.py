@@ -51,8 +51,11 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--out", default="court.pt",
-                        help="a .pt file, or .msgpack for the JAX package's Flax format")
-    parser.add_argument("--resume", default=None)
+                        help="a .pt file, or the JAX package's format: a .msgpack file, or "
+                        "any other path for an orbax checkpoint directory (must not exist)")
+    parser.add_argument("--resume", default=None,
+                        help="start from these weights: a .pt / .pth, a .msgpack or an orbax "
+                        "checkpoint directory")
     # test-sized stages; the default is the real ResNet-50
     parser.add_argument("--stage-sizes", default="3,4,6,3")
     from ._train import add_device_args

@@ -52,8 +52,11 @@ def main(argv=None) -> int:
                         help="source resolution (w h) for coordinate normalization; "
                         "inferred from frame images when omitted")
     parser.add_argument("--out", default="inpaintnet.pt",
-                        help="a .pt file, or .msgpack for the JAX package's Flax format")
-    parser.add_argument("--resume", default=None)
+                        help="a .pt file, or the JAX package's format: a .msgpack file, or "
+                        "any other path for an orbax checkpoint directory (must not exist)")
+    parser.add_argument("--resume", default=None,
+                        help="start from these weights: a .pt / .pth, a .msgpack or an orbax "
+                        "checkpoint directory")
     from ._train import add_device_args
 
     add_device_args(parser)

@@ -1,9 +1,14 @@
-"""Flax msgpack checkpoints, read and written with the standard library and
-numpy.
+"""The JAX package's variable checkpoints: Flax ``.msgpack`` files, read and
+written with the standard library and numpy, and orbax checkpoint
+directories (core/orbax.py).
 
-Counterpart of the ``.msgpack`` half of ``padel_analytics_tpu/core/checkpoint.py``
-(Flax's ``serialization.to_bytes`` / ``from_bytes``, which the JAX package's
-trackers load and its train apps write). The format is msgpack
+Counterpart of ``padel_analytics_tpu/core/checkpoint.py``, with its rule: a
+path ending in ``.msgpack`` is a Flax file (``serialization.to_bytes`` /
+``from_bytes``), any other path an orbax directory (`checkpoint_format`;
+the port's own ``.pt`` / ``.pth`` files are torch's and are not read here).
+The JAX package's trackers load both and its train apps write both.
+
+The ``.msgpack`` format is msgpack
 (``msgpack.packb(tree, default=_msgpack_ext_pack, strict_types=True)`` in
 ``flax/serialization.py``) with three extension types:
 
@@ -21,19 +26,21 @@ arrays, maps and ext in their fix / 8 / 16 / 32 forms) and writes the
 smallest form, as msgpack's packer does. Anything else (an unknown ext
 code, a reserved byte, a truncated or over-long buffer) raises ValueError.
 
-The msgpack package is not used (the card's machine has none). The JAX
-package's orbax directories are not read: a path that is not ``.msgpack``
-raises NotImplementedError.
+The msgpack package is not used (the card's machine has none), nor orbax
+or tensorstore.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
+
+from . import orbax
 
 #: Flax's bound on one array leaf's bytes before it is chunked.
 MAX_CHUNK_SIZE = 2**30
@@ -333,22 +340,39 @@ def msgpack_serialize(tree) -> bytes:
 # -------------------------------------------------------------------- files
 
 
-def _msgpack_path(path) -> Path:
-    path = Path(path)
-    if path.suffix != ".msgpack":
-        raise NotImplementedError(
-            f"{path}: only Flax .msgpack files are read and written here; the JAX package's "
-            "orbax checkpoint directories are not ported (use .msgpack or torch .pt)")
-    return path
+def checkpoint_format(path, what: str = "checkpoint", load: bool = True) -> str:
+    """'torch' for a ``.pt`` / ``.pth`` file (the port's own rule), 'flax'
+    for ``.msgpack``, 'orbax' for any other path, which must be a directory,
+    as the JAX package decides. To `load`, a path that does not exist
+    raises FileNotFoundError (nothing falls back to random weights), any
+    other file ValueError; both name `what`. A path to save to is not
+    looked at."""
+    path = str(path)
+    if load and not os.path.exists(path):
+        raise FileNotFoundError(f"{what} {path} not found")
+    if path.endswith((".pt", ".pth")):
+        return "torch"
+    if path.endswith(".msgpack"):
+        return "flax"
+    if load and not os.path.isdir(path):
+        raise ValueError(f"unsupported {what} {path!r} (want a .pt, .pth or .msgpack file, or "
+                         "an orbax checkpoint directory)")
+    return "orbax"
 
 
 def save_checkpoint(variables: Any, path) -> None:
-    """Write a variable tree as a Flax .msgpack file."""
-    path = _msgpack_path(path)
+    """Write a variable tree: a Flax file for a path ending in ``.msgpack``,
+    else an orbax directory (which must not exist yet)."""
+    path = Path(path)
+    if checkpoint_format(path, load=False) != "flax":
+        return orbax.save(variables, path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(msgpack_serialize(variables))
 
 
 def load_checkpoint(path):
-    """A Flax .msgpack file -> its variable tree (nested dicts of arrays)."""
-    return msgpack_restore(_msgpack_path(path).read_bytes())
+    """A Flax .msgpack file or an orbax directory -> its variable tree
+    (nested dicts of arrays)."""
+    if checkpoint_format(path) == "orbax":
+        return orbax.load(path)
+    return msgpack_restore(Path(path).read_bytes())

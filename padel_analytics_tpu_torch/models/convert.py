@@ -4,8 +4,8 @@ Counterpart of ``padel_analytics_tpu/models/convert.py``, in the other
 direction where the source is the JAX package: `state_dict_from_flax` maps
 a ``{'params', 'batch_stats'}`` variable tree (as numpy arrays) onto a torch
 ``state_dict``, and `flax_from_state_dict` maps it back (the .msgpack files
-that `load_flax_state_dict` reads and `save_flax` writes, with
-core/checkpoint.py). The port's submodule names equal the Flax tree's (TrackNet,
+and orbax directories that `load_flax_state_dict` reads and `save_flax`
+writes, with core/checkpoint.py). The port's submodule names equal the Flax tree's (TrackNet,
 YOLOv8 and InpaintNet alike; ResNet-50 keeps each conv and its BN under one
 ConvBN, so ``convN`` / ``bnN`` become ``convN.conv`` / ``convN.bn``), so the
 bridge inverts the layouts:
@@ -162,16 +162,18 @@ def _sorted(tree):
 
 
 def load_flax_state_dict(path) -> dict[str, torch.Tensor]:
-    """A Flax .msgpack variable file (the JAX package's trackers and train
-    apps) -> the port's state_dict of the same model."""
+    """A Flax .msgpack variable file or an orbax checkpoint directory (the
+    JAX package's trackers and train apps) -> the port's state_dict of the
+    same model."""
     from ..core.checkpoint import load_checkpoint
 
     return state_dict_from_flax(load_checkpoint(path))
 
 
 def save_flax(path, model: torch.nn.Module) -> None:
-    """Write a port model's weights as the JAX package's .msgpack file (what
-    its `_engine.load_variables` reads for the same model)."""
+    """Write a port model's weights as the JAX package's .msgpack file, or
+    for any other path an orbax checkpoint directory (what its
+    `_engine.load_variables` reads for the same model)."""
     from ..core.checkpoint import save_checkpoint
 
     save_checkpoint(flax_from_state_dict(model.state_dict()), path)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config import BallTrackerConfig
+from ..core.checkpoint import checkpoint_format
 from ..models.convert import (
     convert_inpaintnet_checkpoint,
     convert_tracknet_checkpoint,
@@ -173,14 +174,12 @@ class BallTracker(Tracker):
         self.tracknet_seq_len = self.TRAJECTORY_LENGTH
         state_dict = None
         path = None if tracking_model_path is None else str(tracking_model_path)
-        if path is not None and path.endswith(".msgpack"):
-            # A Flax tree carries no param_dict: seq_len and bg_mode are the
-            # config's, checked against the weights' shapes below.
+        if path is not None and checkpoint_format(path, "TrackNet checkpoint") != "torch":
+            # A Flax tree (.msgpack or orbax) carries no param_dict: seq_len
+            # and bg_mode are the config's, checked against the weights'
+            # shapes below.
             state_dict = load_flax_state_dict(path)
         elif path is not None:
-            if not path.endswith((".pt", ".pth")):
-                raise ValueError(f"unsupported TrackNet checkpoint {path!r} "
-                                 "(want .pt, .pth or .msgpack)")
             state_dict, param_dict = convert_tracknet_checkpoint(load_torch_checkpoint(path))
             self.tracknet_seq_len = int(param_dict.get("seq_len", self.TRAJECTORY_LENGTH))
             self.bg_mode = param_dict.get("bg_mode", "concat")
@@ -204,13 +203,10 @@ class BallTracker(Tracker):
         self.inpaintnet_seq_len = 16
         if inpainting_model_path:
             ipath = str(inpainting_model_path)
-            if ipath.endswith(".msgpack"):
-                istate, iparams = load_flax_state_dict(ipath), {}
-            elif ipath.endswith((".pt", ".pth")):
+            if checkpoint_format(ipath, "InpaintNet checkpoint") == "torch":
                 istate, iparams = convert_inpaintnet_checkpoint(load_torch_checkpoint(ipath))
             else:
-                raise ValueError(f"unsupported InpaintNet checkpoint {ipath!r} "
-                                 "(want .pt, .pth or .msgpack)")
+                istate, iparams = load_flax_state_dict(ipath), {}
             self.inpaintnet_seq_len = int(iparams.get("seq_len", 16))
             self.inpaintnet = Engine(InpaintNet(), self.device, istate)
 

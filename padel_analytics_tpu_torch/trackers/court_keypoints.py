@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import CourtKeypointsTrackerConfig
+from ..core.checkpoint import checkpoint_format
 from ..models.convert import (
     convert_resnet50_state_dict,
     load_flax_state_dict,
@@ -240,8 +241,9 @@ class KeypointsTracker(Tracker):
 def _load_resnet(path: str) -> dict[str, torch.Tensor]:
     """A ResNet-50 court checkpoint -> the port's ResNet50Regressor
     state_dict: a torchvision resnet50 state_dict (or a pickled module holding
-    one, which needs a full unpickle), or the JAX package's Flax .msgpack."""
-    if path.endswith(".msgpack"):
+    one, which needs a full unpickle), or the JAX package's Flax .msgpack or
+    orbax directory."""
+    if checkpoint_format(path, "ResNet-50 court checkpoint") != "torch":
         return load_flax_state_dict(path)
     state_dict = load_torch_checkpoint(path, allow_pickle=True)
     if hasattr(state_dict, "state_dict"):

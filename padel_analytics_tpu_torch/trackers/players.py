@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import PlayersTrackerConfig
+from ..core.checkpoint import checkpoint_format
 from ..models.convert import (
     load_flax_state_dict,
     load_torch_checkpoint,
@@ -214,11 +215,10 @@ def _person_scores(cls_scores: torch.Tensor) -> torch.Tensor:
 def _load_yolo(path: str) -> dict[str, torch.Tensor]:
     """A YOLOv8 checkpoint -> the port's YOLOv8 state_dict: an ultralytics
     .pt (a pickled model, or a state_dict; unpickled in full, as ultralytics
-    checkpoints need), or the JAX package's Flax .msgpack."""
-    if path.endswith(".msgpack"):
+    checkpoints need), or the JAX package's Flax .msgpack or orbax
+    directory."""
+    if checkpoint_format(path, "YOLOv8 checkpoint") != "torch":
         return load_flax_state_dict(path)
-    if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"unsupported YOLOv8 checkpoint {path!r} (want .pt, .pth or .msgpack)")
     ckpt = load_torch_checkpoint(path, allow_pickle=True)
     model = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
     state_dict = model.state_dict() if hasattr(model, "state_dict") else model

@@ -1,5 +1,6 @@
 """The train apps' checkpoints: `.pt` files in the formats the port's own
-loaders (and the reference's) read, or the JAX package's Flax `.msgpack`.
+loaders (and the reference's) read, or the JAX package's Flax `.msgpack`
+and orbax directories.
 
 - TrackNet: ``{'model': state_dict, 'param_dict': {'seq_len', 'bg_mode'}}``
   (the reference's format, `BallTracker(tracking_model_path=...)`);
@@ -11,8 +12,11 @@ loaders (and the reference's) read, or the JAX package's Flax `.msgpack`.
 - ResNet-50: a state_dict under torchvision's names, which the resnet
   court reads.
 
-A path ending in ``.msgpack`` is the JAX package's format instead, for
-every family: the ``{'params', 'batch_stats'}`` tree its
+A path ending in ``.pt`` / ``.pth`` is torch's; any other is the JAX
+package's format, for every family (`core/checkpoint.py::
+checkpoint_format`): a ``.msgpack`` file, or else an orbax checkpoint
+directory (written in orbax's plain per-array layout; the path must not
+exist yet), each holding the ``{'params', 'batch_stats'}`` tree its
 `_engine.load_variables` builds for the same model (`models/convert.py::
 flax_from_state_dict`, no param_dict), which its trackers and apps load.
 `load_for_resume` reads each back, the reference's own files and the JAX
@@ -32,6 +36,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from ..core.checkpoint import checkpoint_format
 from ..models.convert import (
     _HEAD_BRANCH,
     _HEAD_LAYER,
@@ -49,32 +54,21 @@ from ..parallel.tensor_parallel import is_sharded
 YOLO_HEAD_INDEX = 22
 
 
-def _check_path(path) -> str:
-    path = str(path)
-    if not path.endswith((".pt", ".pth", ".msgpack")):
-        raise ValueError(f"unsupported checkpoint {path!r} (want .pt, .pth or .msgpack)")
-    return path
-
-
-def _is_flax(path) -> bool:
-    return _check_path(path).endswith(".msgpack")
-
-
 def _cpu(state_dict) -> dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in state_dict.items()}
 
 
 def _whole(model: nn.Module, path) -> bool:
-    """Refuse a model whose weights are shards; whether `path` is a Flax
-    .msgpack."""
+    """Refuse a model whose weights are shards; whether `path` is in the JAX
+    package's format (.msgpack or an orbax directory)."""
     if is_sharded(model):
         raise ValueError(f"saving {path}: the model is sharded over the 'model' axis; call "
                          "parallel.gather_params(model, mesh) on every rank first")
-    return _is_flax(path)
+    return checkpoint_format(path, load=False) != "torch"
 
 
 def _save(obj, path) -> None:
-    Path(_check_path(path)).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
     torch.save(obj, path)
 
 
@@ -174,10 +168,10 @@ def save_resnet(path, model: nn.Module) -> None:
 def load_for_resume(family: str, path) -> dict[str, torch.Tensor]:
     """The port's state_dict of `family` ('tracknet', 'inpaintnet', 'yolo',
     'resnet') from a file the train apps write, the reference's own, or the
-    JAX package's .msgpack."""
+    JAX package's .msgpack or orbax directory."""
     if family not in ("tracknet", "inpaintnet", "yolo", "resnet"):
         raise ValueError(f"unknown model family {family!r}")
-    if _is_flax(path):
+    if checkpoint_format(path) != "torch":
         return load_flax_state_dict(path)
     path = str(path)
     if family == "tracknet":

@@ -174,8 +174,9 @@ def test_formerly_unported_inpaintnet_runs(tmp_path, rng):
     assert tracker.inpaintnet is not None and tracker.inpaintnet_seq_len == 16
     TrackingRunner([tracker], clip, tmp_path / "o.mp4", render=False).run()
     assert [b.frame for b in tracker.results] == list(range(20))
+    (tmp_path / "inpaint.bin").write_bytes(b"\0")  # neither a known suffix nor a directory
     with pytest.raises(ValueError, match="InpaintNet"):
-        BallTracker(None, inpainting_model_path="inpaint.bin", device="cpu")
+        BallTracker(None, inpainting_model_path=str(tmp_path / "inpaint.bin"), device="cpu")
 
 
 def test_short_clip_zero_fills(tmp_path, rng):

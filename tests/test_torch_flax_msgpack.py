@@ -20,7 +20,8 @@ flax_from_state_dict) against Flax itself, in both directions:
   Flax's; float32 (which Flax never writes) read as msgpack writes it;
 - malformed input raises ValueError: an unknown ext code, a reserved byte,
   a truncated buffer, trailing bytes, a dtype numpy does not know (naming
-  the leaf); an orbax directory raises NotImplementedError.
+  the leaf); a directory that is no orbax checkpoint raises ValueError
+  (orbax directories themselves: tests/test_torch_orbax.py).
 """
 
 import copy
@@ -276,9 +277,15 @@ def test_unserializable_leaves_raise():
 
 
 def test_orbax_directories_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
+    """Formerly refused (NotImplementedError), orbax directories are now
+    read and written (core/orbax.py): a path that is no .msgpack is a
+    directory, a directory without _METADATA is refused, and a missing
+    .msgpack still raises."""
+    with pytest.raises(ValueError, match="not an orbax checkpoint"):
         ckpt.load_checkpoint(tmp_path)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.save_checkpoint({"params": {}}, tmp_path / "ckpt")
+    tree = {"params": {"w": np.arange(3, dtype=np.float32)}, "batch_stats": {}}
+    ckpt.save_checkpoint(tree, tmp_path / "ckpt")
+    got = ckpt.load_checkpoint(tmp_path / "ckpt")
+    assert got["batch_stats"] == {} and np.array_equal(got["params"]["w"], tree["params"]["w"])
     with pytest.raises(FileNotFoundError):
         ckpt.load_checkpoint(tmp_path / "missing.msgpack")

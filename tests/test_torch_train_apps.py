@@ -227,6 +227,7 @@ def test_msgpack_resume_refused(rally, tmp_path):
     with pytest.raises(FileNotFoundError):
         train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--resume",
                                        str(tmp_path / "missing.msgpack")))
+    (tmp_path / "tracknet.ckpt").write_bytes(b"\0")  # neither a known suffix nor a directory
     with pytest.raises(ValueError, match="msgpack"):
         train_tracknet.main(_ball_args(rally, tmp_path / "x.pt", "--resume",
                                        str(tmp_path / "tracknet.ckpt")))

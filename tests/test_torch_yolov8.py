@@ -181,6 +181,7 @@ def test_num_classes_inferred_from_checkpoint(tmp_path):
         PlayerTracker(str(tmp_path / "missing.pt"), None, model_variant="n", device="cpu")
     with pytest.raises(FileNotFoundError):
         PlayerTracker(str(tmp_path / "missing.msgpack"), None, model_variant="n", device="cpu")
+    (tmp_path / "weights.bin").write_bytes(b"\0")  # neither a known suffix nor a directory
     with pytest.raises(ValueError, match=".pt, .pth or .msgpack"):
         PlayerTracker(str(tmp_path / "weights.bin"), None, device="cpu")
 
