@@ -244,6 +244,19 @@ is printed):
    its plain version, timed. The kernels line's 'staged_*' entries carry
    the S = 16 pass's profiled executions and device ms a chunk, and
    'fast_tracknet' (d)'s numbers.
+22. entry points in the JAX package's call forms: (a) the ball path at
+   its full configuration on phase 6's rally with phase 15's InpaintNet
+   checkpoint and use_inpaintnet=False: no InpaintNet built and none run,
+   K1 / K2 launches equal to phase 6's, the cache byte-equal to the tracker's
+   with no inpaint path (a tracker with the flag on runs InpaintNet: the
+   control); then TrackingRunner(fused=True) with it, the caches equal to
+   the path-less tracker's fused run, and FusedPipeline.run streaming every
+   frame's ball before the end; (b) a full-width YOLOv8m detector (cls head
+   calibrated) written as .msgpack and as an orbax directory, read back by
+   core.checkpoint.load_checkpoint(target, path) and served through the
+   players path: K1 launches equal to phase 7's, caches byte-equal to the
+   one-argument load's. The kernels line's launches_by_path carries
+   'ball_no_inpaint' and 'load_target'.
 
 With --mesh-ranks N (N cards) it builds the kernels and runs the mesh over N
 processes, one a card, joined by NCCL: the decisive fakes' caches on every
@@ -4022,6 +4035,159 @@ def staged_kernel_entries(k1: dict, k2: dict, staged: dict) -> list[dict]:
     return out
 
 
+# -------------------------------------------- phase 22: the JAX call forms
+
+
+def _counting_inpaintnet_forwards() -> list:
+    """A list that gains an entry at every InpaintNet forward from now on."""
+    calls: list = []
+    real = InpaintNet.forward
+
+    def forward(self, *args, **kwargs):
+        calls.append(1)
+        return real(self, *args, **kwargs)
+
+    InpaintNet.forward = forward
+    return calls
+
+
+def phase_ball_no_inpaint(want: dict) -> dict:
+    """(a): BallTracker(use_inpaintnet=False) with an InpaintNet checkpoint,
+    per tracker and fused. Returns the per-tracker pass's launches."""
+    n = 64
+    frames = synthetic_rally(n, seed=6)
+    info = VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n)
+    real_forward = InpaintNet.forward
+    forwards = _counting_inpaintnet_forwards()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            inpaint = str(write_inpaint_checkpoint(tmp))
+
+            def ball(name: str, **kwargs) -> BallTracker:
+                # No device argument: the entry point's default is the card.
+                t = BallTracker(None, save_path=tmp / f"{name}.json", seed=0, **kwargs)
+                t.video_info_post_init(info)
+                return t
+
+            off = ball("off", config=BallTrackerConfig(inpainting_model_path=inpaint),
+                       use_inpaintnet=False)
+            none = ball("none", config=BallTrackerConfig())
+            check(off.inpaintnet is None, "use_inpaintnet=False built an InpaintNet")
+            conv3x3.reset_launches()
+            heatmap.reset_launches()
+            t0 = time.perf_counter()
+            off.predict_and_update(iter(frames), total_frames=n)
+            off.save_predictions()
+            off_s = time.perf_counter() - t0
+            launches = {"conv3x3_bn_act": conv3x3.launches, "heatmap_cc": heatmap.launches}
+            check(launches == want, f"ball without InpaintNet: launches {launches} != {want}")
+            none.predict_and_update(iter(frames), total_frames=n)
+            none.save_predictions()
+            check((tmp / "off.json").read_bytes() == (tmp / "none.json").read_bytes(),
+                  "use_inpaintnet=False: the cache differs from the path-less tracker's")
+            check(not forwards, f"use_inpaintnet=False ran {len(forwards)} InpaintNet forwards")
+            on = ball("on", config=BallTrackerConfig(inpainting_model_path=inpaint))
+            on.predict_and_update(iter(frames), total_frames=n)
+            check(len(forwards) > 0, "the control (use_inpaintnet=True) ran no InpaintNet")
+            control = len(forwards)
+
+            players, pose, _, court = full_width_trackers(tmp)
+            calibrate_cls_head(players, frames[:8])
+            calibrate_cls_head(pose, frames[:8])
+            fused = {}
+            for name, tracker in (("off", off), ("none", none)):
+                runner = TrackingRunner([players, pose, tracker, court], MemoryClip(frames, 30.0),
+                                        tmp, fused=True, fused_chunk=FUSED_CHUNK, render=False,
+                                        collect_data=False)
+                fused_s = _fused_pass(runner, (players, pose, tracker, court))
+                fused[name] = [_json(t.results) for t in (players, pose, tracker, court)]
+            check(fused["off"] == fused["none"],
+                  "fused, use_inpaintnet=False: the caches differ from the path-less run's")
+            streamed = []
+            players.restart()
+            FusedPipeline(players, pose, off, court, chunk=FUSED_CHUNK).run(
+                iter(frames), n, stream=lambda *new: streamed.append(len(new[2])))
+            check(sum(streamed) == n and len(streamed) > 1,
+                  f"fused, use_inpaintnet=False: streamed {streamed}, not the clip's {n} balls")
+            check(len(forwards) == control, "InpaintNet ran in the fused runs")
+    finally:
+        InpaintNet.forward = real_forward
+    print(f"entry points (a): use_inpaintnet=False on {n} frames 1920x1080: "
+          f"{n / off_s:.1f} frames/s (first pass), launches {launches}, cache byte-equal to no "
+          f"inpaint path, 0 InpaintNet forwards (the flag on: {control}); fused "
+          f"{n / fused_s:.1f} frames/s (second run), caches equal, streamed in {len(streamed)} "
+          "calls")
+    return launches
+
+
+def phase_load_target(frames, want: dict) -> dict:
+    """(b): a full-width YOLOv8m detector through load_checkpoint(target,
+    path) from .msgpack and from an orbax directory, served through the
+    players path. Returns the orbax-served pass's launches."""
+    from padel_analytics_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from padel_analytics_tpu_torch.models.convert import (
+        flax_from_state_dict,
+        state_dict_from_flax,
+    )
+
+    n = len(frames)
+    info = VideoInfo(width=1920, height=1080, fps=30.0, total_frames=n)
+    polygon = PolygonZone(COURT_POLYGON, (1920, 1080))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        source = PlayerTracker(None, polygon_zone=polygon, config=PlayersTrackerConfig())
+        calibrate_cls_head(source, frames[:8])
+        tree = flax_from_state_dict(source.engine.model.state_dict())
+        target = flax_from_state_dict(PlayerTracker(
+            None, polygon_zone=polygon, config=PlayersTrackerConfig(), seed=1
+        ).engine.model.state_dict())
+        paths = {"msgpack": tmp / "det.msgpack", "orbax": tmp / "det_orbax"}
+        for path in paths.values():
+            save_checkpoint(tree, path)
+
+        def serve(name: str, model_path=None, state_dict=None) -> tuple[bytes, dict]:
+            save = tmp / f"{name}.json"
+            t = PlayerTracker(None, polygon_zone=polygon, save_path=save,
+                              config=PlayersTrackerConfig(model_path=model_path))
+            if state_dict is not None:
+                t.engine.model.load_state_dict(state_dict)
+            t.video_info_post_init(info)
+            conv3x3.reset_launches()
+            t.predict_and_update(iter(frames), total_frames=n)
+            t.save_predictions()
+            return save.read_bytes(), {"conv3x3_bn_act": conv3x3.launches,
+                                       "heatmap_cc": heatmap.launches}
+
+        want_bytes, _ = serve("one_argument", model_path=str(paths["msgpack"]))
+        load_ms = {}
+        for fmt, path in paths.items():
+            t0 = time.perf_counter()
+            restored = load_checkpoint(target, path)
+            load_ms[fmt] = (time.perf_counter() - t0) * 1e3
+            heatmap.reset_launches()
+            got, launches = serve(fmt, state_dict=state_dict_from_flax(restored))
+            check(got == want_bytes, f"load_checkpoint(target, {fmt}): the cache differs")
+            want_launches = {"conv3x3_bn_act": want["conv3x3_bn_act"], "heatmap_cc": 0}
+            check(launches == want_launches,
+                  f"load_checkpoint(target, {fmt}): launches {launches} != {want_launches}")
+        boxes = sum(len(p) for p in json.loads(want_bytes))
+        check(boxes > 0, "load_checkpoint(target, path): the served detector found no player")
+    print(f"entry points (b): YOLOv8m detect through load_checkpoint(target, path): read "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in load_ms.items())
+          + f"; {n} frames served from each, caches byte-equal to the one-argument load's "
+            f"({boxes} boxes); launches {launches} a pass")
+    return launches
+
+
+def phase_entry_points(ball_launches: dict, players_launches: dict, smi: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"ball_no_inpaint": phase_ball_no_inpaint(ball_launches),
+           "load_target": phase_load_target(synthetic_players(64, seed=9), players_launches)}
+    print(f"entry points: phase 22 took {time.perf_counter() - t0:.1f} s on {smi}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels need one")
@@ -4084,6 +4250,7 @@ def main() -> None:
     staged = phase_staged(synthetic_players(128, seed=9), smi)
     fast_tracknet = phase_fast_tracknet(dev, k1)
     print(f"staged: phase 21 took {time.perf_counter() - t0:.1f} s")
+    by_path.update(phase_entry_points(by_path["ball"], by_path["players"], smi))
     # Device ms a chunk from the profiled fast passes; null where the
     # profiler saw no launch of the kernel (not measured, never 0).
     for k, name in ((k1, "K1"), (k2, "K2")):

@@ -8,7 +8,8 @@ the CLI writes it with `DataFrame.to_csv`. The port computes the same
 float64 columns, in the same order and with each operation in the same
 order, in numpy (`into_columns`), and `write_csv` writes the bytes that
 `to_csv` writes for that table (tests/test_torch_analytics.py holds it
-against pandas). The port does not depend on pandas.
+against pandas). The port needs pandas only for `into_dataframe`, which
+wraps those columns in a DataFrame.
 """
 
 from __future__ import annotations
@@ -200,6 +201,13 @@ class DataAnalytics:
                 cols[f"{p}_Anorm{fi}"] = np.sqrt(cols[f"{p}_Ax{fi}"] ** 2
                                                  + cols[f"{p}_Ay{fi}"] ** 2)
         return cols
+
+    def into_dataframe(self, fps: float):
+        """The feature table as a pandas DataFrame (`into_columns`); pandas
+        is imported here, and only here."""
+        import pandas as pd
+
+        return pd.DataFrame(self.into_columns(fps))
 
     def write_csv(self, path: str | Path, fps: float) -> None:
         """Write the feature table as `into_dataframe(fps).to_csv(path)`

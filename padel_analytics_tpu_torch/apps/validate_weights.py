@@ -250,10 +250,15 @@ def _compare(kind: str, ours: str, theirs: str) -> dict:
     return COMPARATORS[kind](a, b)
 
 
-def _worst(stats: dict, worst: float) -> float:
+def np_isfinite(x) -> bool:
+    """Whether `x` is finite, as a Python bool."""
     import numpy as np
 
-    if "max_px" in stats and np.isfinite(stats["max_px"]):
+    return bool(np.isfinite(x))
+
+
+def _worst(stats: dict, worst: float) -> float:
+    if "max_px" in stats and np_isfinite(stats["max_px"]):
         return max(worst, stats["max_px"])
     return worst
 

@@ -1,10 +1,10 @@
 """Typed configuration for the ported trackers.
 
 Counterpart of ``padel_analytics_tpu/config.py``: the ball, players,
-player-pose and court-keypoints tracker configs and the `PipelineConfig`
-fields the ported paths read. `from_flat` / `from_module` accept the reference's flat config
-names. The JAX package's ``use_pallas`` switch has no counterpart: on CUDA
-the hand-written kernels are the path.
+player-pose and court-keypoints tracker configs, `DeviceConfig` and the
+`PipelineConfig` that holds them. `from_flat` / `from_module` accept the
+reference's flat config names. The JAX package's ``use_pallas`` switch has no
+counterpart: on CUDA the hand-written kernels are the path.
 """
 
 from __future__ import annotations
@@ -12,6 +12,18 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional
+
+
+@dataclass
+class DeviceConfig:
+    """Mesh and device placement sizes, as the JAX package's. Nothing reads
+    them there or here: the mesh is `parallel.make_mesh`'s, the compute dtype
+    the trackers' `compute_dtype`, the chunk the runner's `fused_chunk`."""
+
+    data_parallel: int = -1  # -1: every device
+    model_parallel: int = 1
+    compute_dtype: str = "bfloat16"
+    frames_per_chunk: int = 64
 
 
 @dataclass
@@ -97,6 +109,7 @@ class BallTrackerConfig:
     bg_mode: str = "concat"
     height: int = 288
     width: int = 512
+    sigma: float = 2.5  # the label discs' radius (training); BallTracker.SIGMA
     eval_mode: str = "weight"  # temporal ensemble weighting
     # The exact low-resolution rewrite of the up blocks' first convs
     # (models/tracknet.py `_SubpixelUpConvBN`): the same checkpoints, the
@@ -114,7 +127,7 @@ class BallTrackerConfig:
 
 @dataclass
 class PipelineConfig:
-    """End-to-end pipeline configuration (the fields the ported path reads)."""
+    """End-to-end pipeline configuration."""
 
     input_video_path: str = "./examples/videos/rally.mp4"
     output_video_path: str = "results.mp4"
@@ -135,6 +148,7 @@ class PipelineConfig:
         default_factory=CourtKeypointsTrackerConfig
     )
     ball: BallTrackerConfig = field(default_factory=BallTrackerConfig)
+    device: DeviceConfig = field(default_factory=DeviceConfig)
 
     @classmethod
     def from_flat(cls, flat: Mapping[str, Any]) -> "PipelineConfig":

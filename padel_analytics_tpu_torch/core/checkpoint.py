@@ -367,12 +367,94 @@ def save_checkpoint(variables: Any, path) -> None:
     if checkpoint_format(path, load=False) != "flax":
         return orbax.save(variables, path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(msgpack_serialize(variables))
+    path.write_bytes(msgpack_serialize(_state_dict(variables)))
 
 
-def load_checkpoint(path):
+def _state_dict(tree):
+    """Flax's ``to_state_dict``, as its ``to_bytes`` writes a tree: a list,
+    tuple or named tuple as a dict keyed by "0", "1", ... (or its fields),
+    dict keys as str."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return {f: _state_dict(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def load_checkpoint(target: Any = None, path=None):
     """A Flax .msgpack file or an orbax directory -> its variable tree
-    (nested dicts of arrays)."""
-    if checkpoint_format(path) == "orbax":
-        return orbax.load(path)
-    return msgpack_restore(Path(path).read_bytes())
+    (nested dicts of arrays): ``load_checkpoint(path)``.
+
+    ``load_checkpoint(target, path)`` restores into the structure of
+    `target`, as the JAX package's does (a `target` of None is no target).
+    From a ``.msgpack`` as ``flax.serialization.from_bytes``: each of
+    target's dict keys must be in the file (the file's others are dropped),
+    lists, tuples and named tuples must match in length and fields, and every
+    leaf comes as the file holds it. From an orbax directory as
+    ``StandardCheckpointer.restore(target=)``: the keys and lengths must match
+    exactly, and every leaf is cast to the dtype of target's (as
+    ``np.asarray`` gives it); its shape is the file's. A mismatch raises
+    ValueError."""
+    if path is None:
+        target, path = None, target
+    fmt = checkpoint_format(path)
+    tree = orbax.load(path) if fmt == "orbax" else msgpack_restore(Path(path).read_bytes())
+    if target is None:
+        return tree
+    return _restore(target, tree, strict=fmt == "orbax", where=str(path))
+
+
+def _restore(target, state, strict: bool, where: str):
+    """`state` (a loaded tree; a msgpack holds lists and named tuples as
+    dicts) in the structure of `target`; `strict`: orbax's rules, else
+    Flax's (see `load_checkpoint`)."""
+    fields = getattr(target, "_fields", None)  # a named tuple
+    if isinstance(target, dict) or (fields is not None and isinstance(state, dict)):
+        keys = {str(k): k for k in (target if fields is None else fields)}
+        if not isinstance(state, dict):
+            raise ValueError(f"{where}: a dict in the target, {type(state).__name__} in the file")
+        missing = set(keys) - set(state)
+        extra = set(state) - set(keys) if strict or fields is not None else set()
+        if missing or extra:
+            raise ValueError(f"{where}: the keys {sorted(missing)} of the target are not in the "
+                             f"file, {sorted(extra)} of the file not in the target")
+        if fields is not None:
+            return type(target)(**{f: _restore(getattr(target, f), state[f], strict,
+                                               f"{where}/{f}") for f in fields})
+        # orbax restores through a JAX tree, whose dicts are in key order
+        return {keys[k]: _restore(target[keys[k]], state[k], strict, f"{where}/{k}")
+                for k in (sorted(keys) if strict else keys)}
+    if isinstance(target, (list, tuple)):
+        if not strict:  # Flax's state dict of a sequence: keys "0", "1", ...
+            if not (isinstance(state, dict) and set(state) == set(map(str, range(len(state))))):
+                raise ValueError(f"{where}: a sequence in the target, {type(state).__name__} "
+                                 "in the file")
+            state = [state[str(i)] for i in range(len(state))]
+        if not isinstance(state, (list, tuple)) or len(state) != len(target):
+            got = len(state) if isinstance(state, (list, tuple)) else type(state).__name__
+            raise ValueError(f"{where}: a sequence of {len(target)} in the target, {got} in "
+                             "the file")
+        items = [_restore(t, v, strict, f"{where}/{i}")
+                 for i, (t, v) in enumerate(zip(target, state))]
+        if fields is not None:
+            return type(target)(*items)
+        return tuple(items) if isinstance(target, tuple) else items
+    return _cast(state, target) if strict and target is not None else state
+
+
+def _cast(leaf, like):
+    """An orbax leaf cast to the dtype of the target leaf `like`: numpy, or a
+    torch.bfloat16 tensor for bfloat16 (numpy has none)."""
+    if isinstance(like, torch.Tensor):
+        bf16 = like.dtype == torch.bfloat16
+        dtype = None if bf16 else like.new_empty(0).numpy().dtype
+    else:
+        dtype = np.asarray(like).dtype
+        bf16 = dtype.name == "bfloat16"
+    if bf16:
+        return torch.as_tensor(leaf).to(torch.bfloat16)
+    if isinstance(leaf, torch.Tensor):  # a bfloat16 leaf to another dtype
+        leaf = leaf.float().numpy()
+    return np.asarray(leaf).astype(dtype)

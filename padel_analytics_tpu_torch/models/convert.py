@@ -118,39 +118,57 @@ def _put(tree: dict, path: list[str], value: np.ndarray) -> None:
     tree[path[-1]] = value
 
 
+def convert_state_dict(state_dict: Mapping[str, Any],
+                       name_map: Mapping[str, tuple[str, ...]] | None = None) -> dict:
+    """The JAX package's generic torch -> Flax conversion: a state_dict ->
+    ``{'params', 'batch_stats'}`` of numpy leaves in their own dtype, dotted
+    module paths as nested keys in the state_dict's order. `name_map`
+    rewrites module-path prefixes (the longest that matches). A weight of
+    rank 4 / 3 / 2 is a kernel (Conv2d OIHW -> HWIO, Conv1d OIK -> KIO,
+    Linear OI -> IO), of rank 1 a BatchNorm scale; running statistics go to
+    ``batch_stats``, which a model without BatchNorm does not get;
+    ``num_batches_tracked`` (no Flax counterpart) is dropped."""
+    prefixes = sorted(name_map or {}, key=len, reverse=True)
+    params: dict = {}
+    stats: dict = {}
+    for key, value in state_dict.items():
+        module, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        for p in prefixes:
+            if module == p or module.startswith(p + "."):
+                module = ".".join(name_map[p]) + module[len(p):]
+                break
+        path = [m for m in module.split(".") if m]
+        arr = torch.as_tensor(value).detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim in _WEIGHT_AXES:
+            _put(params, [*path, "kernel"],
+                 np.ascontiguousarray(arr.transpose(_WEIGHT_AXES[arr.ndim])))
+        elif leaf == "weight" and arr.ndim == 1:
+            _put(params, [*path, "scale"], arr.copy())
+        elif leaf == "bias":
+            _put(params, [*path, "bias"], arr.copy())
+        elif leaf in ("running_mean", "running_var"):
+            _put(stats, [*path, "mean" if leaf == "running_mean" else "var"], arr.copy())
+        else:
+            raise ValueError(f"unhandled weight {key} {tuple(arr.shape)}")
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
 def flax_from_state_dict(state_dict: Mapping[str, Any]) -> dict[str, dict]:
     """A port state_dict (TrackNet, YOLOv8, InpaintNet, ResNet50Regressor)
     -> the JAX package's ``{'params', 'batch_stats'}`` variable tree of the
     same model, float32 numpy leaves: the inverse of
-    `state_dict_from_flax`. A weight of rank 4 / 3 / 2 is a kernel (Conv2d
-    OIHW -> HWIO, Conv1d OIK -> KIO, Linear OI -> IO), of rank 1 a
-    BatchNorm scale; running statistics go to ``batch_stats``;
-    ``num_batches_tracked`` (no Flax counterpart) is dropped. A model
-    without BatchNorm has no ``batch_stats``, as in Flax. Keys are sorted at
+    `state_dict_from_flax`, by `convert_state_dict`. Keys are sorted at
     every level, as in the trees JAX builds."""
     resnet = "fc.weight" in state_dict and "conv1.bn.weight" in state_dict
-    params: dict = {}
-    stats: dict = {}
+    renamed = {}
     for key, value in state_dict.items():
         *module, leaf = key.split(".")
-        if leaf == "num_batches_tracked":
-            continue
         if resnet:
             module = _flax_resnet_module(module)
-        arr = torch.as_tensor(value).detach().cpu().float().numpy()
-        if leaf == "weight" and arr.ndim in _WEIGHT_AXES:
-            _put(params, [*module, "kernel"],
-                 np.ascontiguousarray(arr.transpose(_WEIGHT_AXES[arr.ndim])))
-        elif leaf == "weight" and arr.ndim == 1:
-            _put(params, [*module, "scale"], arr.copy())
-        elif leaf == "bias":
-            _put(params, [*module, "bias"], arr.copy())
-        elif leaf in ("running_mean", "running_var"):
-            _put(stats, [*module, "mean" if leaf == "running_mean" else "var"], arr.copy())
-        else:
-            raise ValueError(f"unhandled weight {key} {tuple(arr.shape)}")
-    tree = {"params": params, "batch_stats": stats} if stats else {"params": params}
-    return _sorted(tree)
+        renamed[".".join([*module, leaf])] = torch.as_tensor(value).float()
+    return _sorted(convert_state_dict(renamed))
 
 
 def _sorted(tree):
@@ -262,21 +280,46 @@ def _yolo_key(key: str, head_index: str) -> str:
     return ".".join([_YOLO_LAYERS[idx], *rest])
 
 
-def yolov8_state_dict_from_ultralytics(state_dict: Mapping[str, Any],
-                                       head_index: int = 22) -> dict[str, torch.Tensor]:
-    """ultralytics YOLOv8 detect/pose state_dict -> the port's YOLOv8
-    state_dict (fp32). The DFL conv (a frozen arange) is dropped: the decode
-    takes the expectation in closed form."""
+def _ultralytics_renamed(state_dict: Mapping[str, Any], head_index: int) -> dict:
+    """An ultralytics YOLOv8 state_dict under the port's names, the DFL conv
+    (a frozen arange) dropped: the decode takes the expectation in closed
+    form."""
     out = {}
     for key, value in state_dict.items():
         if ".dfl." in key:
             continue
         if key.startswith("model.model."):
             key = key[len("model."):]
-        value = torch.as_tensor(value)
-        out[_yolo_key(key, str(head_index))] = (
-            value.float() if value.is_floating_point() else value)
+        out[_yolo_key(key, str(head_index))] = torch.as_tensor(value)
     return out
+
+
+def yolov8_state_dict_from_ultralytics(state_dict: Mapping[str, Any],
+                                       head_index: int = 22) -> dict[str, torch.Tensor]:
+    """ultralytics YOLOv8 detect/pose state_dict -> the port's YOLOv8
+    state_dict (fp32)."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in _ultralytics_renamed(state_dict, head_index).items()}
+
+
+def yolo_name_map(head_index: int = 22) -> dict[str, tuple[str, ...]]:
+    """The JAX package's prefix map of an ultralytics v8 state_dict
+    (``model.{i}...`` -> the Flax module path), from the port's tables."""
+    out = {f"model.{i}": (name,) for i, name in _YOLO_LAYERS.items()}
+    for branch, ours in _HEAD_BRANCH.items():
+        for scale in range(3):
+            for layer, our_layer in _HEAD_LAYER.items():
+                out[f"model.{head_index}.{branch}.{scale}.{layer}"] = (f"{ours}_{scale}",
+                                                                        our_layer)
+    return out
+
+
+def convert_yolov8_state_dict(state_dict: Mapping[str, Any], head_index: int = 22) -> dict:
+    """The JAX package's conversion of an ultralytics YOLOv8 detect/pose
+    state_dict: its Flax variable tree, numpy leaves in the state_dict's
+    dtypes (`convert_state_dict` of the port's names, which are the Flax
+    tree's)."""
+    return convert_state_dict(_ultralytics_renamed(state_dict, head_index))
 
 
 def load_torch_checkpoint(path: str, allow_pickle: bool = False):

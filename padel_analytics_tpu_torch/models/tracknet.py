@@ -219,12 +219,7 @@ def make_tracknet(seq_len: int = 8, bg_mode: str = "concat",
     """Model + input channel count by background mode (the reference's
     get_model); `subpixel_up` takes the exact low-resolution rewrite of the
     up blocks' first convs (the same parameters)."""
-    if bg_mode == "subtract":
-        in_dim = seq_len
-    elif bg_mode == "subtract_concat":
-        in_dim = seq_len * 4
-    elif bg_mode == "concat":
-        in_dim = (seq_len + 1) * 3
-    else:
-        in_dim = seq_len * 3
+    from ..trackers._ballwindow import window_in_dim  # the trackers import this module
+
+    in_dim = window_in_dim(bg_mode, seq_len)
     return TrackNet(in_dim, seq_len, subpixel_up), in_dim

@@ -53,9 +53,10 @@ def _scale_d(n: int, depth: float) -> int:
 class YoloConv(ConvBN):
     """ultralytics Conv: conv + BN (eps 1e-3, Flax momentum 0.97) + SiLU."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int = 1, stride: int = 1):
-        super().__init__(in_features, features, kernel_size, stride, act="silu", bn_eps=1e-3,
-                         bn_momentum=0.97)
+    def __init__(self, in_features: int, features: int, kernel_size: int = 1, stride: int = 1,
+                 act: str = "silu", bn_eps: float = 1e-3, bn_momentum: float = 0.97):
+        super().__init__(in_features, features, kernel_size, stride, act=act, bn_eps=bn_eps,
+                         bn_momentum=bn_momentum)
 
 
 class Bottleneck(nn.Module):

@@ -16,8 +16,12 @@ Differences from host ByteTrack (the JAX package's, kept):
 - constant-velocity box prediction without the Kalman covariance
   (predict = x + v, update = observation + velocity EMA); the host's
   lost-track height-velocity zeroing has no counterpart;
-- a fixed table of `max_tracks` slots; IDs still allocated in first-seen
-  order.
+- a fixed table of slots; IDs still allocated in first-seen order. As
+  there, `max_tracks` bounds each greedy pass's rounds and the slots that
+  spawn (the first `max_tracks`), whatever the table's size. A bound above
+  the table's size acts as the table's size: the JAX scan's reads past its
+  table are clamped to the last slot, which by then is taken or has nothing
+  left to spawn.
 
 The lifecycle mirrors the host path:
 - stage 1: activated tracks (tracked and lost) against high detections
@@ -113,12 +117,14 @@ def _taken(match_col: torch.Tensor, matched: torch.Tensor, d: int) -> torch.Tens
                                reduce="amax") > 0
 
 
-def _spawn_plan(free: torch.Tensor, spawnable: torch.Tensor):
+def _spawn_plan(free: torch.Tensor, spawnable: torch.Tensor, max_tracks: int):
     """Slot-by-slot spawning in closed form: the k-th free slot (in slot
     order) takes the k-th spawnable detection (in detection order) while
-    both last. Returns (do (T,), the new IDs' offsets (T,), det index (T,),
-    count)."""
+    both last; only the first `max_tracks` slots spawn. Returns (do (T,),
+    the new IDs' offsets (T,), det index (T,), count)."""
     d = spawnable.shape[0]
+    if max_tracks < free.shape[0]:
+        free = free & (torch.arange(free.shape[0], device=free.device) < max_tracks)
     slot_rank = torch.cumsum(free.to(torch.int32), 0, dtype=torch.int32) - 1
     do = free & (slot_rank < spawnable.sum(dtype=torch.int32))
     # The spawnable detections first, each group in index order.
@@ -128,9 +134,10 @@ def _spawn_plan(free: torch.Tensor, spawnable: torch.Tensor):
 
 
 def _step(state: TrackState, fboxes, fscores, fvalid, track_thresh: float,
-          match_thresh: float, max_lost: int):
-    """One frame through the table. Returns (new state, (D,) int32 IDs, 0
-    for a detection that emits none)."""
+          match_thresh: float, max_lost: int, max_tracks: int):
+    """One frame through the table, each greedy pass bounded to
+    `max_tracks` rounds. Returns (new state, (D,) int32 IDs, 0 for a
+    detection that emits none)."""
     t = state.ids.shape[0]
     d = fboxes.shape[0]
     dev = fboxes.device
@@ -146,15 +153,20 @@ def _step(state: TrackState, fboxes, fscores, fvalid, track_thresh: float,
     tracked_prev = pool & (state.age_since_update == 0)
     iou = box_iou(pred, fboxes)
 
-    m1 = _greedy_match(_gate(iou, pool, high, 1.0 - match_thresh), t)
+    rounds = min(t, max_tracks)  # a round takes a row: t rounds take them all
+    m1 = _greedy_match(_gate(iou, pool, high, 1.0 - match_thresh), rounds)
     matched1 = m1 >= 0
     col_used1 = _taken(m1, matched1, d)
     # Stage 2 (tracked leftovers vs low detections) and the unconfirmed pass
     # (last frame's spawns vs leftover high detections): disjoint rows and
-    # columns, one greedy pass.
+    # columns, one greedy pass, unless a bound below the table's size caps
+    # each pass on its own.
     g2 = _gate(iou, tracked_prev & ~matched1, low, 0.5)
     g3 = _gate(iou, unconf, high & ~col_used1, 0.3)
-    m23 = _greedy_match(torch.maximum(g2, g3), t)
+    if rounds == t:
+        m23 = _greedy_match(torch.maximum(g2, g3), t)
+    else:
+        m23 = torch.maximum(_greedy_match(g2, rounds), _greedy_match(g3, rounds))
     matched3 = (m23 >= 0) & unconf
 
     match_col = torch.where(matched1, m1, m23)
@@ -178,7 +190,7 @@ def _step(state: TrackState, fboxes, fscores, fvalid, track_thresh: float,
 
     col_taken = _taken(match_col, matched, d)
     spawnable = high & ~col_taken & (fscores >= _f32(det_thresh))
-    do, slot_rank, det_i, n_new = _spawn_plan(ids == 0, spawnable)
+    do, slot_rank, det_i, n_new = _spawn_plan(ids == 0, spawnable, max_tracks)
     ids = torch.where(do, state.next_id + slot_rank, ids)
     new_boxes = torch.where(do[:, None], fboxes[det_i], new_boxes)
     new_vel = torch.where(do[:, None], 0.0, new_vel)
@@ -196,11 +208,12 @@ def _step(state: TrackState, fboxes, fscores, fvalid, track_thresh: float,
     return new_state, det_ids
 
 
-def _first_frame(state: TrackState, fboxes, fscores, fvalid, det_thresh: float):
+def _first_frame(state: TrackState, fboxes, fscores, fvalid, det_thresh: float,
+                 max_tracks: int):
     """Frame 0: every detection >= det_thresh spawns an activated track that
     emits at once (ByteTrack activates the first frame's tracks)."""
     do, slot_rank, det_i, n_new = _spawn_plan(state.ids == 0,
-                                              fvalid & (fscores >= _f32(det_thresh)))
+                                              fvalid & (fscores >= _f32(det_thresh)), max_tracks)
     new_ids = torch.where(do, state.next_id + slot_rank, 0)
     det_ids = torch.zeros((fboxes.shape[0],), dtype=torch.int32, device=fboxes.device)
     # A slot that spawns nothing adds a 0 to the maximum.
@@ -213,11 +226,11 @@ def _first_frame(state: TrackState, fboxes, fscores, fvalid, det_thresh: float):
 
 def associate_chunk(state: TrackState, boxes: torch.Tensor, scores: torch.Tensor,
                     valid: torch.Tensor, first: bool = False, track_thresh: float = 0.25,
-                    match_thresh: float = 0.8, max_lost: int = 30):
+                    match_thresh: float = 0.8, max_lost: int = 30, max_tracks: int = 16):
     """Scan a chunk of consecutive frames, (B, D, 4) boxes, (B, D) scores and
     validity (D >= 1 slots a frame), through a carried TrackState on its
     device. `first=True` applies the frame-0 activation to the chunk's first
-    frame.
+    frame. `max_tracks` bounds the greedy rounds and the spawning slots.
 
     Returns (new state, (B, D) int32 IDs, 0 = unassigned or dropped)."""
     dev = state.ids.device
@@ -229,10 +242,11 @@ def associate_chunk(state: TrackState, boxes: torch.Tensor, scores: torch.Tensor
     out = []
     for f in range(boxes.shape[0]):
         if first and f == 0:
-            state, ids = _first_frame(state, boxes[0], scores[0], valid[0], track_thresh + 0.1)
+            state, ids = _first_frame(state, boxes[0], scores[0], valid[0], track_thresh + 0.1,
+                                      max_tracks)
         else:
             state, ids = _step(state, boxes[f], scores[f], valid[f], track_thresh,
-                               match_thresh, max_lost)
+                               match_thresh, max_lost, max_tracks)
         out.append(ids)
     if not out:
         return state, torch.zeros((0, boxes.shape[1]), dtype=torch.int32, device=dev)
@@ -248,5 +262,5 @@ def associate_clip(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tenso
     dev = torch.as_tensor(boxes).device
     state, ids = associate_chunk(init_state(max_tracks, dev), boxes, scores, valid, first=True,
                                  track_thresh=track_thresh, match_thresh=match_thresh,
-                                 max_lost=max_lost)
+                                 max_lost=max_lost, max_tracks=max_tracks)
     return ids, state

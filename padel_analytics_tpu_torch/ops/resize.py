@@ -190,6 +190,10 @@ class ResizePlan:
     def dst_hw(self) -> tuple[int, int]:
         return (self.r_h.shape[0], self.r_w.shape[0])
 
+    @property
+    def src_hw(self) -> tuple[int, int]:
+        return (self.r_h.shape[1], self.r_w.shape[1])
+
     def _passes(self):
         return (("w", self.r_w), ("h", self.r_h))
 
@@ -232,14 +236,18 @@ class ResizePlan:
             ops.append(op)
         return tuple(ops)
 
-    def apply(self, images: torch.Tensor, banded: bool = True, tile: int = BAND_TILE,
+    def apply(self, images: torch.Tensor, dtype: torch.dtype = torch.float32,
+              banded: bool = True, tile: int = BAND_TILE,
               min_ratio: float = BAND_MIN_RATIO) -> torch.Tensor:
-        """Resize a (..., H, W, C) stack to (..., H', W', C) fp32: the
-        horizontal pass, Pillow's uint8 clip of the intermediate where the
-        plan quantises, then the vertical pass; each dense or banded as
-        `forms` says."""
-        x = images.float()
+        """Resize a (..., H, W, C) stack to (..., H', W', C), computed in
+        `dtype`: the horizontal pass, Pillow's uint8 clip of the intermediate
+        where the plan quantises, then the vertical pass; each dense or
+        banded as `forms` says."""
+        x = images.to(dtype)
         op_w, op_h = self.upload(x.device, banded, tile, min_ratio)
+        if dtype != torch.float32:  # the operands are kept in fp32
+            op_w, op_h = (tuple(t.to(dtype) if torch.is_tensor(t) and t.is_floating_point()
+                                else t for t in op) for op in (op_w, op_h))
         with no_tf32():
             x = _pass(x, op_w, -2)
             if self.quantize_intermediate:
@@ -304,9 +312,9 @@ class LetterboxPlan:
     out_w: int
     gain: float  # scale from source to resized
 
-    def apply(self, images: torch.Tensor) -> torch.Tensor:
-        """(..., H, W, 3) source frames -> (..., out_h, out_w, 3) fp32."""
-        resized = self.plan.apply(images)
+    def apply(self, images: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(..., H, W, 3) source frames -> (..., out_h, out_w, 3) in `dtype`."""
+        resized = self.plan.apply(images, dtype)
         new_h, new_w = self.plan.dst_hw
         pad_bottom = self.out_h - new_h - self.pad_top
         pad_right = self.out_w - new_w - self.pad_left

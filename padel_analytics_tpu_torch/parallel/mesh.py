@@ -33,13 +33,28 @@ DEFAULT_TIMEOUT_S = 300.0
 def init_distributed(device: torch.device | str = "cuda", backend: Optional[str] = None,
                      timeout_s: float = DEFAULT_TIMEOUT_S, rank: Optional[int] = None,
                      world_size: Optional[int] = None,
-                     init_method: Optional[str] = None) -> None:
+                     init_method: Optional[str] = None, *, coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> None:
     """Join the default process group, unless this process already has.
 
     backend: NCCL for a CUDA `device`, gloo for the CPU, unless given. rank,
     world_size and init_method (e.g. 'tcp://127.0.0.1:29500') come from the
     arguments or, where absent, from torchrun's environment (RANK,
-    WORLD_SIZE, MASTER_ADDR, MASTER_PORT)."""
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT). The JAX package's keywords name
+    the same: ``coordinator="host:port"`` is ``init_method="tcp://host:port"``,
+    `num_processes` `world_size` and `process_id` `rank`. Unlike the JAX
+    package's, a call without a coordinator joins torchrun's group; it is
+    not a no-op."""
+    for jax_name, value, name, ours in (("coordinator", coordinator, "init_method", init_method),
+                                        ("num_processes", num_processes, "world_size", world_size),
+                                        ("process_id", process_id, "rank", rank)):
+        if value is not None and ours is not None:
+            raise ValueError(f"give {jax_name} or {name}, not both")
+    if coordinator is not None:
+        init_method = f"tcp://{coordinator}"
+    world_size = num_processes if num_processes is not None else world_size
+    rank = process_id if process_id is not None else rank
     if dist.is_initialized():
         return
     device = torch.device(device)

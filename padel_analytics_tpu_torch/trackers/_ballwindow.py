@@ -33,6 +33,14 @@ def frame_channels(bg_mode: str) -> int:
     return _FRAME_CHANNELS[bg_mode]
 
 
+def window_in_dim(bg_mode: str, seq_len: int) -> int:
+    """TrackNet's input channels for a window of `seq_len` frames (the
+    reference's get_model): each frame's channel group, and the median's 3
+    channels once for 'concat'. An unknown mode counts 3 a frame, as in the
+    JAX package. `models.tracknet.make_tracknet` reads it from here."""
+    return seq_len * _FRAME_CHANNELS.get(bg_mode, 3) + (3 if bg_mode == "concat" else 0)
+
+
 def median_model_resolution(median: np.ndarray, height: int, width: int,
                             bg_mode: str, device: torch.device | str) -> np.ndarray:
     """Median background at model resolution, uint8 (H, W, 3).

@@ -114,6 +114,9 @@ class BallTracker(Tracker):
     TRAJECTORY_LENGTH: int = 8
     HEIGHT: int = 288
     WIDTH: int = 512
+    #: The radius of the training labels' discs (`BallTrackerConfig.sigma`);
+    #: inference does not read it.
+    SIGMA: float = 2.5
     #: Source frames uploaded and resized per device call.
     RESIZE_CHUNK: int = 32
 
@@ -128,6 +131,7 @@ class BallTracker(Tracker):
         save_path: Optional[str | Path] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         channel_quirk: bool = True,
+        use_inpaintnet: bool = True,
         config: Optional[BallTrackerConfig] = None,
         device: torch.device | str = "cuda",
         seed: int = 0,
@@ -147,6 +151,7 @@ class BallTracker(Tracker):
             median_max_sample_num = config.median_max_sample_num
             self.HEIGHT = config.height
             self.WIDTH = config.width
+            self.SIGMA = config.sigma
             self.EVAL_MODE = config.eval_mode
             self.TRAJECTORY_LENGTH = config.seq_len
             self.bg_mode = config.bg_mode
@@ -198,10 +203,11 @@ class BallTracker(Tracker):
         self.tracknet = Engine(model, self.device, state_dict)
 
         # InpaintNet, from a reference checkpoint (tensors and plain values
-        # only, loaded without unpickling code).
+        # only, loaded without unpickling code), unless `use_inpaintnet` is
+        # False: then nothing is loaded and the trajectory keeps its gaps.
         self.inpaintnet: Optional[Engine] = None
         self.inpaintnet_seq_len = 16
-        if inpainting_model_path:
+        if inpainting_model_path and use_inpaintnet:
             ipath = str(inpainting_model_path)
             if checkpoint_format(ipath, "InpaintNet checkpoint") == "torch":
                 istate, iparams = convert_inpaintnet_checkpoint(load_torch_checkpoint(ipath))

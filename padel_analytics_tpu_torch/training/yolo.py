@@ -55,12 +55,12 @@ def ciou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
 
 
 @torch.no_grad()
-def assign_batch(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: torch.Tensor,
+def assign_batch(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points_px: torch.Tensor,
                  gt_labels: torch.Tensor, gt_bboxes: torch.Tensor, mask_gt: torch.Tensor):
     """Batched task-aligned assignment on detached predictions.
 
     pd_scores (B, A, nc) sigmoid scores, pd_bboxes (B, A, 4) decoded xyxy
-    pixels, anc_points (A, 2) anchor centres in pixels, gt_labels (B, M),
+    pixels, anc_points_px (A, 2) anchor centres in pixels, gt_labels (B, M),
     gt_bboxes (B, M, 4), mask_gt (B, M) (padding rows False). Returns
     (fg_mask (B, A), target_gt_idx (B, A), target_scores (B, A, nc),
     target_bboxes (B, A, 4))."""
@@ -71,8 +71,8 @@ def assign_batch(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor, anc_points: t
     mask_gt = mask_gt.bool()
 
     # anchors inside each gt box
-    lt = anc_points[None, None] - gt_bboxes[:, :, None, :2]  # (B, M, A, 2)
-    rb = gt_bboxes[:, :, None, 2:] - anc_points[None, None]
+    lt = anc_points_px[None, None] - gt_bboxes[:, :, None, :2]  # (B, M, A, 2)
+    rb = gt_bboxes[:, :, None, 2:] - anc_points_px[None, None]
     in_gts = torch.cat([lt, rb], dim=-1).amin(dim=-1) > eps
 
     overlaps = torch.clamp(ciou(gt_bboxes[:, :, None], pd_bboxes[:, None]), min=0)  # (B, M, A)

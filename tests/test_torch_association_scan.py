@@ -100,6 +100,35 @@ def test_scan_keeps_table_slots_bounded():
     assert int((state.ids > 0).sum()) <= 8 and (ids.numpy() > 0).sum(axis=1).max() <= 8
 
 
+#: (slots, the first chunk's max_tracks, the rest's): 24 crossing tracks, so
+#: the second chunk has more live tracks than its bound where it is lower.
+BOUNDS = [(16, 16, 16), (32, 32, 16), (16, 16, 8), (16, 16, 32)]
+
+
+@pytest.mark.parametrize("slots,first_bound,bound", BOUNDS)
+def test_max_tracks_bounds_the_scan_as_jax(slots, first_bound, bound):
+    """`max_tracks` bounds each greedy pass's rounds and the spawning slots,
+    whatever the state's size, as in the JAX scan: IDs and state equal. A
+    bound above the state's slots acts as its slots (the JAX scan's reads
+    past its table are clamped and spawn nothing)."""
+    boxes, scores, valid = _synthetic_scene(np.random.default_rng(1), n_tracks=24,
+                                            n_frames=16)
+    head, tail = (a[:6] for a in (boxes, scores, valid)), (a[6:] for a in (boxes, scores, valid))
+    head, tail = list(head), list(tail)
+    state, jstate = init_state(slots), jax_init(slots)
+    state, _ = associate_chunk(state, *map(torch.from_numpy, head), first=True,
+                               max_tracks=first_bound)
+    jstate, _ = jax_chunk(jstate, *map(jnp.asarray, head), first=True, max_tracks=first_bound)
+    live = int((state.ids > 0).sum())
+    assert live == min(slots, first_bound, 24)
+    got_state, got = associate_chunk(state, *map(torch.from_numpy, tail), max_tracks=bound)
+    want_state, want = jax_chunk(jstate, *map(jnp.asarray, tail), max_tracks=bound)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _assert_state_equal(got_state, want_state)
+    _, free = associate_chunk(state, *map(torch.from_numpy, tail), max_tracks=slots)
+    assert torch.equal(free, got) == (bound >= live)
+
+
 def test_fused_device_association_equals_jax():
     frames = clip_frames(np.random.default_rng(3))
     # One JAX pipeline for both of its runs: its compiled steps do not

@@ -6,7 +6,10 @@ Random-weight heatmaps hover at the 0.5 threshold, where summation order
 legitimately flips the decode; so the cache-level comparison plugs the same
 decisive fake TrackNet into both and requires BYTE-IDENTICAL ball JSON
 caches. A second case runs the real TrackNet at fp32 with bridged weights
-and holds the ensembled heatmaps of every chunk within 1e-4 abs."""
+and holds the ensembled heatmaps of every chunk within 1e-4 abs.
+`BallTracker(use_inpaintnet=False)` with an InpaintNet checkpoint (seeded
+weights) gives the JAX package's cache with the same flag, byte for byte,
+and the fused pipeline then streams, as with no inpaint path."""
 
 import inspect
 
@@ -27,18 +30,29 @@ from padel_analytics_tpu_torch.models.convert import tracknet_state_dict_from_fl
 from padel_analytics_tpu_torch.ops.median import median_background
 from padel_analytics_tpu_torch.trackers import BallTracker, TrackingRunner
 from padel_analytics_tpu_torch.trackers._ballwindow import median_model_resolution
+from _torch_fused_cases import (  # noqa: F401  (one_torch_thread: an autouse fixture)
+    BrightTrackNet,
+    caches,
+    clip_frames,
+    make_trackers,
+    one_torch_thread,
+)
 from _torch_helpers import random_jax_tracknet
+from padel_analytics_tpu_torch.trackers import FusedPipeline
+from test_torch_inpaint import write_checkpoint
 
 W, H = 128, 96
 HEATMAP_ATOL = 1e-4
 
 
-def _write_clip(rng, path, n):
+def _write_clip(rng, path, n, gaps=()):
+    """A bright ball crossing a dark noisy frame, absent in the frames `gaps`."""
     writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10.0, (W, H))
     for i in range(n):
         f = np.full((H, W, 3), 30, np.uint8)
         x0 = 10 + (4 * i) % 100
-        f[40:50, x0: x0 + 6] = 220
+        if i not in gaps:
+            f[40:50, x0: x0 + 6] = 220
         f += rng.integers(0, 10, f.shape, dtype=np.uint8)
         writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
     writer.release()
@@ -129,6 +143,74 @@ def test_ball_heatmaps_match_with_real_tracknet(rng, tmp_path, monkeypatch):
     assert len(port_heat) == len(jax_heat) == -(-(n + 7) // 4)
     for a, b in zip(port_heat, jax_heat):
         np.testing.assert_allclose(a, b, rtol=0, atol=HEATMAP_ATOL)
+
+
+def _ball_cache(tmp_path, clip, name, jax: bool, **kwargs) -> bytes:
+    """The decisive fake's ball cache from one per-tracker run."""
+    config = dict(height=72, width=128, batch_size=4, median_max_sample_num=6)
+    path = tmp_path / f"{name}.json"
+    if jax:
+        tracker = JaxBallTracker(None, compute_dtype=jnp.float32, save_path=path,
+                                 config=JaxBallConfig(**config), **kwargs)
+        tracker.tracknet.model = JaxFakeTrackNet()
+        JaxRunner([tracker], clip, tmp_path / f"{name}.mp4", render=False,
+                  collect_data=False).run()
+        assert tracker.inpaintnet is None
+    else:
+        tracker = BallTracker(None, compute_dtype=torch.float32, save_path=path, device="cpu",
+                              config=BallTrackerConfig(**config), **kwargs)
+        tracker.tracknet.model = PortFakeTrackNet()
+        TrackingRunner([tracker], clip, tmp_path / f"{name}.mp4", render=False,
+                       collect_data=False).run()
+        assert (tracker.inpaintnet is None) == (not kwargs.get("use_inpaintnet", True)
+                                                or not kwargs.get("inpainting_model_path"))
+    return path.read_bytes()
+
+
+def test_use_inpaintnet_false_equals_jax(rng, tmp_path):
+    """With an InpaintNet checkpoint and use_inpaintnet=False, no InpaintNet
+    is built: the cache is the JAX package's with the same flag and the
+    port's own with no inpaint path; with the flag on, the clip's gap (the
+    ball low on both sides of it) is inpainted and the cache differs."""
+    n = 26
+    clip = tmp_path / "clip.mp4"
+    _write_clip(rng, clip, n, gaps=range(12, 16))
+    inpaint = str(tmp_path / "inpaint.pt")
+    write_checkpoint(rng, inpaint)
+    off = dict(inpainting_model_path=inpaint, use_inpaintnet=False)
+    want = _ball_cache(tmp_path, clip, "jax_off", True, **off)
+    got = _ball_cache(tmp_path, clip, "port_off", False, **off)
+    assert got == want
+    assert _ball_cache(tmp_path, clip, "port_none", False) == got
+    on = _ball_cache(tmp_path, clip, "port_on", False, inpainting_model_path=inpaint)
+    balls = BallTracker(None, load_path=tmp_path / "port_off.json", device="cpu").results
+    assert [b.visibility for b in balls[12:15]] == [0, 0, 0] and on != got
+
+
+def test_fused_pipeline_streams_without_inpaintnet(rng, tmp_path):
+    """The fused pipeline streams its results while it runs when the ball
+    tracker has no InpaintNet, use_inpaintnet=False included, and holds them
+    to the end with one; the caches without it are the path-less run's."""
+    inpaint = str(tmp_path / "inpaint.pt")
+    write_checkpoint(rng, inpaint)
+    frames = clip_frames(np.random.default_rng(3))
+    players, pose, plain, court = make_trackers()
+    out = {}
+    for name, kwargs in (("none", None), ("off", dict(use_inpaintnet=False)), ("on", {})):
+        ball = plain
+        if kwargs is not None:
+            ball = BallTracker(None, inpaint, compute_dtype=torch.float32, device="cpu",
+                               config=BallTrackerConfig(height=72, width=128, batch_size=4,
+                                                        median_max_sample_num=6), **kwargs)
+            ball.tracknet.model = BrightTrackNet()
+            ball.video_info_post_init(plain.video_info)
+        streamed = []
+        players.restart()
+        result = FusedPipeline(players, pose, ball, court, chunk=8).run(
+            iter(frames), len(frames), stream=lambda *new: streamed.append(len(new[2])))
+        out[name] = caches(result)
+        assert sum(streamed) == (0 if name == "on" else len(frames)), name
+    assert out["off"] == out["none"] and out["on"]["ball"] != out["none"]["ball"]
 
 
 def test_runner_refuses_unported_passes(tmp_path, rng):

@@ -6,6 +6,8 @@ orbax directories, through the decoder in csrc/zstd_decode.c), CUDA, OpenCV and 
 packages imported lazily, and the configuration surface."""
 
 import ast
+import subprocess
+import sys
 import types
 from pathlib import Path
 
@@ -95,6 +97,25 @@ def test_cv2_is_imported_lazily():
         names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
         names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
         assert "cv2" not in names, path
+
+
+def test_reexports_load_no_kernel_opencv_or_triton():
+    """The ops, models and utils packages re-export the JAX package's names
+    from their submodules; importing them (in a fresh interpreter) builds or
+    loads no kernel library and imports neither OpenCV nor Triton."""
+    code = ("import sys\n"
+            "import padel_analytics_tpu_torch.ops, padel_analytics_tpu_torch.models\n"
+            "import padel_analytics_tpu_torch.utils\n"
+            "from padel_analytics_tpu_torch import _build\n"
+            "from padel_analytics_tpu_torch.models import TrackNet\n"
+            "from padel_analytics_tpu_torch.ops import decode_heatmaps, ByteTrack\n"
+            "from padel_analytics_tpu_torch.utils import read_video\n"
+            "print(len(_build._loaded), len(_build.build_log),\n"
+            "      [m for m in ('cv2', 'triton') if m in sys.modules])\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0", "0", "[]"], out.stdout
 
 
 @pytest.mark.parametrize("package", ["PIL", "matplotlib", "plotly", "pandas", "streamlit"])

@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 import _torch_dist as td
 from padel_analytics_tpu.config import BallTrackerConfig as JaxBallConfig
+from padel_analytics_tpu.parallel.mesh import init_distributed as jax_init_distributed
 from padel_analytics_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from padel_analytics_tpu.parallel.sharded_inference import (
     sharded_window_inference as jax_sharded,
@@ -203,5 +204,40 @@ def test_init_distributed_reads_torchrun_environment(monkeypatch):
         init_distributed("cpu")  # already joined: no second group
         assert dist.group.WORLD is group
         assert isinstance(make_mesh(device="cpu"), Mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_init_distributed_takes_the_jax_keywords():
+    """The JAX call form: coordinator "host:port", num_processes and
+    process_id are the group's address, size and rank; each with its port
+    name as well is refused."""
+    init_distributed(coordinator=f"127.0.0.1:{td.free_port()}", num_processes=1, process_id=0,
+                     device="cpu", timeout_s=60)
+    try:
+        assert (dist.get_rank(), dist.get_world_size(), dist.get_backend()) == (0, 1, "gloo")
+    finally:
+        dist.destroy_process_group()
+    for both in (dict(coordinator="127.0.0.1:1", init_method="tcp://127.0.0.1:1"),
+                 dict(num_processes=1, world_size=1), dict(process_id=0, rank=0)):
+        with pytest.raises(ValueError, match="not both"):
+            init_distributed("cpu", **both)
+    assert not dist.is_initialized()
+
+
+def test_init_distributed_without_coordinator_joins_torchrun_unlike_jax(monkeypatch):
+    """With no coordinator the JAX package's call does nothing; the port's
+    joins the group torchrun's environment describes (a recorded
+    difference)."""
+    import jax
+
+    assert jax_init_distributed() is None and jax.process_count() == 1
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(td.free_port()))
+    init_distributed(device="cpu", timeout_s=60)
+    try:
+        assert dist.is_initialized() and dist.get_world_size() == 1
     finally:
         dist.destroy_process_group()

@@ -129,11 +129,13 @@ def _random_out(rng, b, a, nc=2, nk=0):
 
 
 def test_assign_batch_equals_jax_vmap(rng):
+    """In the JAX call form: every argument by its keyword."""
     out, anc, _ = _random_out(rng, 3, 84)
     labels, boxes, mask, _ = _gts(rng, 3, 5)
-    want = jax.jit(jyolo.assign_batch)(out["scores"], out["boxes"], anc, labels, boxes, mask)
-    got = yolo.assign_batch(_t(out["scores"]), _t(out["boxes"]), _t(anc), _t(labels),
-                            _t(boxes), _t(mask))
+    args = dict(pd_scores=out["scores"], pd_bboxes=out["boxes"], anc_points_px=anc,
+                gt_labels=labels, gt_bboxes=boxes, mask_gt=mask)
+    want = jax.jit(jyolo.assign_batch)(**args)
+    got = yolo.assign_batch(**{k: _t(v) for k, v in args.items()})
     assert int(np.asarray(want[0]).sum()) > 0  # some anchors are assigned
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
