@@ -19,11 +19,11 @@ pipeline capture again instead of replaying stale operands.
 from __future__ import annotations
 
 import itertools
-import time
 from typing import Callable, Optional
 
 import torch
 
+from ..core.profiling import traced
 from ..ops.packing import Layout
 
 
@@ -46,7 +46,7 @@ class LaneGraph:
     every `run` replays it and queues one copy of its rows into a pinned
     host buffer that lives as long as the graph. A capture that fails
     raises: there is no eager fallback on a card. On the CPU `run` calls
-    `fn`."""
+    `fn`. The warm-up and capture are the run's `fused.capture` span."""
 
     def __init__(self, fn: Callable[[], tuple[torch.Tensor, Layout]], warm: Callable[[], object],
                  stream: Optional[torch.cuda.Stream], weights: tuple, pool=None):
@@ -60,10 +60,9 @@ class LaneGraph:
         self.layout: Optional[Layout] = None
         self.host: Optional[torch.Tensor] = None
         self.replays = 0
-        self.capture_s = 0.0
 
+    @traced("fused.capture")
     def _capture(self) -> None:
-        t0 = time.perf_counter()
         side = torch.cuda.Stream(self.stream.device)
         side.wait_stream(self.stream)
         with torch.cuda.stream(side):
@@ -81,7 +80,6 @@ class LaneGraph:
                                f"{type(e).__name__}: {e}") from e
         self.graph, self.out, self.layout = graph, out, layout
         self.host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        self.capture_s = time.perf_counter() - t0
 
     def run(self) -> tuple[torch.Tensor, Layout]:
         """The round's rows on the host (on a card: once the copy queued on

@@ -16,6 +16,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.profiling import tracer
+
 
 class Lanes:
     """One CUDA stream for the upload (and the ingest decode behind it) and
@@ -94,11 +96,13 @@ class StagingRing:
         self._events: list[Optional[torch.cuda.Event]] = [None] * slots
 
     def acquire(self, k: int) -> np.ndarray:
-        """Chunk k's slot, as a numpy view, once its last upload is done."""
+        """Chunk k's slot, as a numpy view, once its last upload is done (a
+        wait that is the span `fused.slot_wait`)."""
         i = k % len(self._bufs)
         event = self._events[i]
         if event is not None:
-            event.synchronize()
+            with tracer.span("fused.slot_wait"):
+                event.synchronize()
         return self._bufs[i].numpy()
 
     @property

@@ -61,6 +61,15 @@ pinned copy and the decode into one of two round buffers, then one replay a
 lane of a CUDA graph that runs the lane's sub-step over every chunk of the
 round (trackers/_graphs.py; eager on the CPU), one D2H copy a lane, and
 one drain a round. It gives `run`'s results byte for byte.
+
+Every entry point records into the current run of `core.profiling.tracer`
+(opening one when called outside a runner): the spans `fused.setup` (with
+`ball.median`), `fused.prep_wait`, `fused.pack` (on the prefetch worker),
+`fused.dispatch` (with `fused.upload`, and a staged lane's
+`fused.capture`), `fused.drain` (with `fused.drain_wait` and
+`fused.assoc`) and `fused.finish` (with `ball.inpaint`), once per run, chunk
+or round. The prefetch worker's spans join the run it was handed
+(`tracer.bind`).
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from typing import Iterable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.profiling import RunRecord, traced, tracer
 from ..models.resnet import imagenet_stats
 from ..ops.area import resize_area, resize_area_planes
 from ..ops.association_scan import associate_chunk, init_state
@@ -197,27 +207,26 @@ class _ResultBuilder:
         self.stream = stream if ball.inpaintnet is None else None
         self.scan = scan
         self._emitted = 0
-        self.assoc_s = 0.0  # host seconds in ByteTrack or the scan
 
     def add_det(self, boxes, scores, valid) -> None:
         """(F, D, 4/-/-) host arrays for F consecutive frames; ByteTrack (or
         the scan) assigns the IDs here, in frame order. A detection the scan
         gives no ID is dropped, as one ByteTrack does not keep."""
-        t0 = time.perf_counter()
-        if self.scan is not None:
-            ids = self.scan(boxes, scores, valid)
-            keep_mask = valid & (ids > 0)
-        else:
-            byte_track = self.pipeline.players.byte_track
-            keep_mask = np.zeros(valid.shape, bool)
-            ids = np.zeros(valid.shape, np.int64)
-            for f in range(boxes.shape[0]):
-                keep = valid[f]
-                ids_f, kept = byte_track.update_with_detections(boxes[f][keep], scores[f][keep])
-                sel = np.flatnonzero(keep)[kept]
-                keep_mask[f, sel] = True
-                ids[f, sel] = ids_f
-        self.assoc_s += time.perf_counter() - t0
+        with tracer.span("fused.assoc"):
+            if self.scan is not None:
+                ids = self.scan(boxes, scores, valid)
+                keep_mask = valid & (ids > 0)
+            else:
+                byte_track = self.pipeline.players.byte_track
+                keep_mask = np.zeros(valid.shape, bool)
+                ids = np.zeros(valid.shape, np.int64)
+                for f in range(boxes.shape[0]):
+                    keep = valid[f]
+                    ids_f, kept = byte_track.update_with_detections(boxes[f][keep],
+                                                                    scores[f][keep])
+                    sel = np.flatnonzero(keep)[kept]
+                    keep_mask[f, sel] = True
+                    ids[f, sel] = ids_f
         self._det_chunks.append((boxes, scores, keep_mask, ids))
         self._det_ready += boxes.shape[0]
 
@@ -289,6 +298,7 @@ class _ResultBuilder:
                     [self._ball_obj(i) for i in range(lo, hi)], self._court(lo, hi))
         self._emitted = n_ready
 
+    @traced("fused.finish")
     def finish(self) -> dict[str, list]:
         self._materialize()
         if len(self.ball_x) != self.n:
@@ -296,9 +306,10 @@ class _ResultBuilder:
         balls = [self._ball_obj(i) for i in range(self.n)]
         ball = self.pipeline.ball
         if ball.inpaintnet is not None:  # the inpaint pass over the whole clip
-            balls = ball.balls({"x": [int(b.xy[0]) for b in balls],
-                                "y": [int(b.xy[1]) for b in balls],
-                                "visibility": [b.visibility for b in balls]}, self.n)
+            with tracer.span("ball.inpaint"):
+                balls = ball.balls({"x": [int(b.xy[0]) for b in balls],
+                                    "y": [int(b.xy[1]) for b in balls],
+                                    "visibility": [b.visibility for b in balls]}, self.n)
         results = {"players": self.players_objs, "players_keypoints": self.pose_objs,
                    "ball": balls}
         court = self._court(0, self.n)
@@ -323,7 +334,8 @@ class _Download(NamedTuple):
         """The first n rows of the host buffer, once the copy is done, and
         the layout."""
         if self.done is not None:
-            self.done.synchronize()
+            with tracer.span("fused.drain_wait"):
+                self.done.synchronize()
         return self.host[:n], self.layout
 
 
@@ -742,17 +754,19 @@ class FusedPipeline:
         stream: optional callback(players_new, pose_new, ball_new,
         court_new) called in frame order as results finalize, so the caller
         can consume them while inference runs."""
-        with torch.inference_mode():
-            fw, quirk_flags, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
+        with torch.inference_mode(), tracer.run(total_frames):
+            with tracer.span("fused.setup"):
+                fw, quirk_flags, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
+                ring = self._ring(src_hw)
+                zero_frame = np.zeros_like(fw.first())
+                builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
             b = self.chunk
-            ring = self._ring(src_hw)
             # Zero-extend the clip by seq_len-1 frames: every output frame,
             # the tail included, is emitted by the uniform chunk loop.
-            zero_frame = np.zeros_like(fw.first())
             n_ext = n + self._ball_off
             num_chunks = -(-n_ext // b)
-            builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
 
+            @tracer.bind
             def prepare(k: int) -> int:
                 return self._prepare(fw, ring, k, k * b, b, n, zero_frame, pack_pool)
 
@@ -765,6 +779,7 @@ class FusedPipeline:
                                      quirk_flags, state, builder, src_hw)
             return builder.finish()
 
+    @traced("fused.pack")
     def _prepare(self, fw: _FrameWindow, ring: StagingRing, k: int, lo: int, count: int, n: int,
                  zero_frame: np.ndarray, pool: ThreadPoolExecutor) -> int:
         """Host side of chunk (or round) k, frames [lo, lo + count): decode
@@ -789,7 +804,8 @@ class FusedPipeline:
         next_prep = prefetch.submit(prepare, 0)
         pending: collections.deque[_Chunk] = collections.deque()
         for k in range(num_chunks):
-            lo = next_prep.result()
+            with tracer.span("fused.prep_wait"):
+                lo = next_prep.result()
             if k + 1 < num_chunks:
                 next_prep = prefetch.submit(prepare, k + 1)
             chunk, state = self._dispatch(steps, ring, k, lo, n, quirk_flags, state)
@@ -799,6 +815,7 @@ class FusedPipeline:
         while pending:
             self._drain(pending.popleft(), builder, n, src_hw)
 
+    @traced("fused.dispatch")
     def _dispatch(self, steps, ring: StagingRing, k: int, lo: int, n: int, quirk_flags,
                   state: _BallState):
         """Queue chunk k's device work: the upload and decode on the copy
@@ -830,7 +847,7 @@ class FusedPipeline:
         """Chunk k's upload and ingest decode on the copy lane: (frames, an
         event behind them)."""
         lanes = self.lanes
-        with lanes.on(lanes.copy):
+        with tracer.span("fused.upload"), lanes.on(lanes.copy):
             frames = decode(ring.upload(k))
             return frames, lanes.record(lanes.copy)
 
@@ -866,6 +883,7 @@ class FusedPipeline:
                 kpts = kpts * np.asarray(wire[1:], np.float32)  # fp32, as on the device
             results.add_court(kpts, valid)
 
+    @traced("fused.drain")
     def _drain(self, chunk: _Chunk, builder: _ResultBuilder, n: int, src_hw) -> None:
         """Wait for a chunk's (or a staged round's) downloads, then its host
         work: the trackers' host halves, ByteTrack and the ball rows."""
@@ -897,7 +915,7 @@ class FusedPipeline:
         court), or None when the clip is shorter than one chunk. On the CPU
         the times are host wall times."""
         b = self.chunk
-        with torch.inference_mode():
+        with torch.inference_mode(), tracer.run(total_frames):
             fw, _, n, src_hw, steps, state = self._setup(frame_iter, total_frames)
             if n < b:
                 return None
@@ -957,43 +975,37 @@ class FusedPipeline:
 
         `last_staged_split`: host seconds of the loop's terms (setup_s,
         prep_wait_s, upload_s, dispatch_s (captures included), assoc_s,
-        drain_s). `last_staged_graphs`: each lane's graph replays in the
-        run, the lane graphs built and captured (and the capture seconds),
-        the pinned host bytes of the round buffers."""
+        drain_s), from the run's spans. `last_staged_graphs`: each lane's
+        graph replays in the run, the lane graphs built and captured (and the
+        capture seconds), the pinned host bytes of the round buffers."""
         if superchunk < 1:
             raise ValueError(f"superchunk must be >= 1, got {superchunk}")
-        split = dict.fromkeys(("setup_s", "prep_wait_s", "upload_s", "dispatch_s", "assoc_s",
-                               "drain_s"), 0.0)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
-                frame_iter, total_frames)
-            steps = self._get_steps(src_hw)
-            entry = self._staged_entry(src_hw, superchunk)
-            rows = entry.rows
-            num_rounds = -(-(n + self._ball_off) // rows)
-            coef, swap = self._ball_tables(n, quirk_flags, num_rounds * rows + self.chunk)
-            st = entry.state
-            st.median.copy_(torch.from_numpy(median_resized))
-            if st.median_src is not None:
-                st.median_src.copy_(torch.from_numpy(median_src))
-            st.frame_carry.zero_()
-            st.heat_carry.zero_()
-            tables = (torch.from_numpy(coef).to(self.device), torch.from_numpy(swap).to(self.device))
-            self.lanes.after_current()
-            ring = self._ring(src_hw, rows, slots=2)
-            zero_frame = np.zeros_like(fw.first())
-            builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
-            before = {id(g): (g.replays, g.graph is not None) for g in entry.graphs.values()}
-            split["setup_s"] = time.perf_counter() - t0
+        with torch.inference_mode(), tracer.run(total_frames) as record:
+            with tracer.span("fused.setup"):
+                median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
+                    frame_iter, total_frames)
+                steps = self._get_steps(src_hw)
+                entry = self._staged_entry(src_hw, superchunk)
+                rows = entry.rows
+                num_rounds = -(-(n + self._ball_off) // rows)
+                coef, swap = self._ball_tables(n, quirk_flags, num_rounds * rows + self.chunk)
+                st = entry.state
+                st.median.copy_(torch.from_numpy(median_resized))
+                if st.median_src is not None:
+                    st.median_src.copy_(torch.from_numpy(median_src))
+                st.frame_carry.zero_()
+                st.heat_carry.zero_()
+                tables = (torch.from_numpy(coef).to(self.device),
+                          torch.from_numpy(swap).to(self.device))
+                self.lanes.after_current()
+                ring = self._ring(src_hw, rows, slots=2)
+                zero_frame = np.zeros_like(fw.first())
+                builder = _ResultBuilder(self, n, src_hw, stream, self._scan(mesh=False))
+                before = {id(g): (g.replays, g.graph is not None) for g in entry.graphs.values()}
 
+            @tracer.bind
             def prepare(r: int) -> int:
                 return self._prepare(fw, ring, r, r * rows, rows, n, zero_frame, pack_pool)
-
-            def drain(rnd: _Chunk) -> None:
-                t0 = time.perf_counter()
-                self._drain(rnd, builder, n, src_hw)
-                split["drain_s"] += time.perf_counter() - t0
 
             # Round r + 1 is packed in `prefetch` while round r is queued and
             # round r - 1 drained.
@@ -1002,23 +1014,30 @@ class FusedPipeline:
                 next_prep = prefetch.submit(prepare, 0)
                 pending: Optional[_Chunk] = None
                 for r in range(num_rounds):
-                    t0 = time.perf_counter()
-                    lo = next_prep.result()
-                    split["prep_wait_s"] += time.perf_counter() - t0
+                    with tracer.span("fused.prep_wait"):
+                        lo = next_prep.result()
                     if r + 1 < num_rounds:
                         next_prep = prefetch.submit(prepare, r + 1)
-                    current = self._dispatch_round(entry, steps, ring, r, lo, n, tables, split)
+                    current = self._dispatch_round(entry, steps, ring, r, lo, n, tables)
                     if pending is not None:
-                        drain(pending)
+                        self._drain(pending, builder, n, src_hw)
                     pending = current
-                drain(pending)
+                self._drain(pending, builder, n, src_hw)
             self.lanes.current_after_all()
             results = builder.finish()
-        split["assoc_s"] = builder.assoc_s
-        split["drain_s"] -= builder.assoc_s
-        self.last_staged_split = split
-        self.last_staged_graphs = self._graph_stats(entry, ring, before)
+        self.last_staged_split = self._staged_split(record)
+        self.last_staged_graphs = self._graph_stats(entry, ring, before, record)
         return results
+
+    @staticmethod
+    def _staged_split(record: RunRecord) -> dict[str, float]:
+        """`last_staged_split` from a staged run's record: the upload is
+        part of each round's dispatch span, the association of each drain's."""
+        upload, assoc = record.seconds("fused.upload"), record.seconds("fused.assoc")
+        return {"setup_s": record.seconds("fused.setup"),
+                "prep_wait_s": record.seconds("fused.prep_wait"), "upload_s": upload,
+                "dispatch_s": record.seconds("fused.dispatch") - upload, "assoc_s": assoc,
+                "drain_s": record.seconds("fused.drain") - assoc}
 
     def _staged_entry(self, src_hw: tuple[int, int], superchunk: int) -> _Staged:
         """The staged buffers and graphs of this configuration (the key of
@@ -1043,8 +1062,9 @@ class FusedPipeline:
                     entry.graphs.pop((name, p), None)
         return entry
 
+    @traced("fused.dispatch")
     def _dispatch_round(self, entry: _Staged, steps, ring: StagingRing, r: int, lo: int, n: int,
-                        tables, split: dict) -> _Chunk:
+                        tables) -> _Chunk:
         """Queue round r's device work (its first frame `lo`): on the copy
         lane, once round r - 2's lanes let go of the round's frames buffer,
         the upload and the decode into it; on the ball lane the round's rows
@@ -1054,23 +1074,21 @@ class FusedPipeline:
         lanes, p, rows, b = self.lanes, r % 2, entry.rows, self.chunk
         decode = steps[0]
         frames = entry.frames[p]
-        t0 = time.perf_counter()
-        with lanes.on(lanes.copy):
-            for event in entry.free[p]:
-                lanes.wait(lanes.copy, event)
-            if entry.wire is None:
-                ring.upload(r, out=frames)
-            else:
-                wire = ring.upload(r, out=entry.wire)
-                for c in range(0, rows, b):  # a chunk at a time: the decode's int32 temporaries
-                    frames[c: c + b].copy_(decode(wire[c: c + b]))
-            ready = lanes.record(lanes.copy)
-        coef, swap = tables
-        with lanes.on(lanes.ball):
-            entry.state.coef.copy_(coef[lo: lo + rows])
-            entry.state.swap.copy_(swap[lo: lo + rows])
-        t1 = time.perf_counter()
-        split["upload_s"] += t1 - t0
+        with tracer.span("fused.upload"):
+            with lanes.on(lanes.copy):
+                for event in entry.free[p]:
+                    lanes.wait(lanes.copy, event)
+                if entry.wire is None:
+                    ring.upload(r, out=frames)
+                else:
+                    wire = ring.upload(r, out=entry.wire)
+                    for c in range(0, rows, b):  # a chunk at a time: the decode's temporaries
+                        frames[c: c + b].copy_(decode(wire[c: c + b]))
+                ready = lanes.record(lanes.copy)
+            coef, swap = tables
+            with lanes.on(lanes.ball):
+                entry.state.coef.copy_(coef[lo: lo + rows])
+                entry.state.swap.copy_(swap[lo: lo + rows])
         named = [("det", lanes.det), ("pose", lanes.pose), ("ball", lanes.ball)]
         if self.court_mode in ("yolo", "resnet"):
             named.append(("court", lanes.court))
@@ -1082,7 +1100,6 @@ class FusedPipeline:
                 host, layout = graph.run()
                 downloads[name] = _RoundDownload(host, layout, lanes.record(lane), graph.out)
         entry.free[p] = [d.done for d in downloads.values() if d.done is not None]
-        split["dispatch_s"] += time.perf_counter() - t1
         return _Chunk(lo, max(0, min(lo + rows, n) - lo), downloads["det"], downloads["pose"],
                       downloads["ball"], downloads.get("court"))
 
@@ -1132,19 +1149,18 @@ class FusedPipeline:
         return graph
 
     @staticmethod
-    def _graph_stats(entry: _Staged, ring: StagingRing, before: dict) -> dict:
+    def _graph_stats(entry: _Staged, ring: StagingRing, before: dict, record: RunRecord) -> dict:
         """A run's graph record: replays by lane, graphs built, captured and
-        their capture seconds, the pinned host bytes of the round buffers."""
+        their capture seconds (the run's `fused.capture` spans), the pinned
+        host bytes of the round buffers."""
         replays: dict[str, int] = {}
         built = captured = 0
-        capture_s = 0.0
         for (name, _), g in entry.graphs.items():
             was_replays, was_captured = before.get(id(g), (0, False))
             built += id(g) not in before
             replays[name] = replays.get(name, 0) + g.replays - was_replays
-            if g.graph is not None and not was_captured:
-                captured += 1
-                capture_s += g.capture_s
+            captured += g.graph is not None and not was_captured
+        capture_s = record.seconds("fused.capture")
         pinned = ring.nbytes if ring.device.type == "cuda" else 0
         pinned += sum(g.host.numel() * g.host.element_size() for g in entry.graphs.values()
                       if g.host is not None)
@@ -1172,19 +1188,23 @@ class FusedPipeline:
         ball, b = self.ball, self.chunk
         seq_len = ball.tracknet_seq_len
         block = b * mesh.size
-        with torch.inference_mode():
-            median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
-                frame_iter, total_frames)
-            if n < seq_len or -(-n // mesh.size) < seq_len - 1:
-                raise ValueError(f"clip ({n} frames) too short for {mesh.size}-way frame sharding")
-            steps = self._get_steps(src_hw)
-            ball_pre = self._ball_pre_step(src_hw, n, median_src, quirk_flags, block)
-            ring = self._ring(src_hw)
-            zero_frame = np.zeros_like(fw.first())
+        with torch.inference_mode(), tracer.run(total_frames):
+            with tracer.span("fused.setup"):
+                median_resized, median_src, fw, quirk_flags, n, src_hw = self._gather_setup(
+                    frame_iter, total_frames)
+                if n < seq_len or -(-n // mesh.size) < seq_len - 1:
+                    raise ValueError(f"clip ({n} frames) too short for {mesh.size}-way frame "
+                                     "sharding")
+                steps = self._get_steps(src_hw)
+                ball_pre = self._ball_pre_step(src_hw, n, median_src, quirk_flags, block)
+                ring = self._ring(src_hw)
+                zero_frame = np.zeros_like(fw.first())
+                builder = _ResultBuilder(self, n, src_hw, None, self._scan(mesh=True))
             num_blocks = -(-n // block)
-            builder = _ResultBuilder(self, n, src_hw, None, self._scan(mesh=True))
             pre_frames: list[torch.Tensor] = []
 
+            @tracer.bind
+            @traced("fused.pack")
             def prepare(k: int) -> int:
                 """Host side of block k: read the block's frames, pack this
                 rank's chunk of them."""
@@ -1204,7 +1224,8 @@ class FusedPipeline:
                 next_prep = prefetch.submit(prepare, 0)
                 pending: collections.deque[_Chunk] = collections.deque()
                 for k in range(num_blocks):
-                    lo = next_prep.result()
+                    with tracer.span("fused.prep_wait"):
+                        lo = next_prep.result()
                     if k + 1 < num_blocks:
                         next_prep = prefetch.submit(prepare, k + 1)
                     pending.append(self._dispatch_block(steps, ball_pre, ring, k, lo, n, mesh))
@@ -1249,6 +1270,7 @@ class FusedPipeline:
 
         return step
 
+    @traced("fused.dispatch")
     def _dispatch_block(self, steps, ball_pre, ring: StagingRing, k: int, lo: int, n: int,
                         mesh: Mesh) -> _Chunk:
         """Queue block k's device work for this rank's chunk (its first frame
@@ -1268,6 +1290,7 @@ class FusedPipeline:
                       launch(lanes.ball, lambda f: ball_pre(f, lo)),
                       launch(lanes.court, court_step) if court_step else None)
 
+    @traced("fused.drain")
     def _drain_block(self, chunk: _Chunk, builder: _ResultBuilder, src_hw,
                      pre_frames: list) -> None:
         """A block's host work, alike on every rank: the trackers' host
@@ -1296,8 +1319,11 @@ class FusedPipeline:
                     break
             # Recomputed when the clip changed (first-frame fingerprint); the
             # quirk swap of the head frames applies on every run.
-            if buffered and ball.ensure_median_for_clip(buffered):
-                quirk_upto = len(buffered)
+            if buffered:
+                with tracer.span("ball.median"):
+                    quirk = ball.ensure_median_for_clip(buffered)
+                if quirk:
+                    quirk_upto = len(buffered)
         elif subtract_mode and ball.median is None:
             raise ValueError(f"bg_mode={ball.bg_mode!r} needs a median")
 
@@ -1315,8 +1341,9 @@ class FusedPipeline:
         if ball.median is None:
             median_resized = np.zeros((ball.HEIGHT, ball.WIDTH, 3), np.uint8)
         else:
-            median_resized = median_model_resolution(ball.median, ball.HEIGHT, ball.WIDTH,
-                                                     ball.bg_mode, self.device)
+            with tracer.span("ball.median"):
+                median_resized = median_model_resolution(ball.median, ball.HEIGHT, ball.WIDTH,
+                                                         ball.bg_mode, self.device)
         # Float median for the subtract modes' difference images on the
         # device, at the resolution they run at: the source, or the wire in
         # the 'derived' ingest (INTER_AREA, as the frames).

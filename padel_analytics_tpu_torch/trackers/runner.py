@@ -28,18 +28,23 @@ data_analytics; only global rank 0 writes files (the prediction caches, the
 video, data.csv through `write_csv`), the others collect without drawing. A
 (data, model) mesh splits the frames over 'data' and runs replicated over
 'model'.
+
+Each `run()` opens one record of `core.profiling.tracer` (its spans
+`runner.run`, `runner.fused`, `runner.<tracker>`, `runner.save`,
+`runner.collect`, and `runner.write_csv` after it); `stage_times` is a view
+of the last one.
 """
 
 from __future__ import annotations
 
 import threading
-import timeit
 from copy import deepcopy
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from ..core.profiling import RunRecord, tracer
 from ..utils.video import MemoryClip, VideoInfo, frame_generator, make_video_writer
 from .base import Tracker
 from .fused import FusedPipeline
@@ -102,7 +107,8 @@ class _StreamingDrawer:
         self._ready = 0
         self._done = False
         self.exc: Optional[BaseException] = None
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        # Its span joins the runner's run.
+        self._thread = threading.Thread(target=tracer.bind(self._run), daemon=True)
         self._thread.start()
 
     def notify(self, n_ready: int) -> None:
@@ -132,23 +138,25 @@ class _StreamingDrawer:
         r = self.runner
         try:
             print(f"runner: Writing results into {r.inference_path} (streaming)")
-            t0 = timeit.default_timer()
-            writer = r._open_writer()
-            try:
-                store = FrameStore(r.video_path, r.start, r.stride, r.end, max_cached_frames=0)
-                for frame_index, frame in enumerate(store):
-                    if frame_index >= r.total_frames:
-                        break
-                    with self._cond:
-                        while self._ready <= frame_index and not self._done:
-                            self._cond.wait()
-                        if self._ready <= frame_index:
-                            break  # done, and no result for this frame
-                    r._draw_one(writer, frame_index, frame)
-            except BaseException:
-                writer.release()  # finalise the container before the error surfaces
-                raise
-            r._finish_draw(writer, t0)
+            with tracer.span("runner.collect"):
+                writer = r._open_writer()
+                try:
+                    store = FrameStore(r.video_path, r.start, r.stride, r.end,
+                                       max_cached_frames=0)
+                    for frame_index, frame in enumerate(store):
+                        if frame_index >= r.total_frames:
+                            break
+                        with self._cond:
+                            while self._ready <= frame_index and not self._done:
+                                self._cond.wait()
+                            if self._ready <= frame_index:
+                                break  # done, and no result for this frame
+                        r._draw_one(writer, frame_index, frame)
+                except BaseException:
+                    writer.release()  # finalise the container before the error surfaces
+                    raise
+                r._finish_draw(writer)
+            print("runner: Done.")
         except BaseException as e:  # surfaced by finish()
             self.exc = e
 
@@ -249,7 +257,7 @@ class TrackingRunner:
 
         self.projected_court = ProjectedCourt(self.video_info)
         self.data_analytics = DataAnalytics() if collect_data else None
-        self.stage_times: dict[str, float] = {}
+        self._record: Optional[RunRecord] = None  # the last run's
         self._fused_pipeline: Optional[FusedPipeline] = None
         self._fused_drew = False  # the last fused run drew as it went
 
@@ -260,15 +268,37 @@ class TrackingRunner:
         a (data, model) mesh runs replicated over 'model')."""
         return self.mesh is None or self.mesh.is_main
 
+    @property
+    def stage_times(self) -> dict[str, float]:
+        """Seconds of the last run's stages, from its run record:
+        'fused_inference' (`runner.fused`), each tracker's inference on the
+        per-tracker path (`runner.<tracker>`) and 'draw_and_collect'
+        (`runner.collect`); a stage the run skipped is absent."""
+        out: dict[str, float] = {}
+        if self._record is None:
+            return out
+        for span in self._record.spans:
+            stage = span.name.removeprefix("runner.")
+            if stage == "fused":
+                stage = "fused_inference"
+            elif stage == "collect":
+                stage = "draw_and_collect"
+            elif stage not in self.trackers:
+                continue
+            out[stage] = out.get(stage, 0.0) + span.seconds
+        return out
+
     def write_csv(self, path: str | Path) -> None:
         """Write the collected data as the reference's data.csv (global rank
         0 only under a mesh)."""
         if self.is_writer:
-            self.data_analytics.write_csv(path, self.video_info.fps)
+            with tracer.span("runner.write_csv"):
+                self.data_analytics.write_csv(path, self.video_info.fps)
 
     def _save(self, tracker: Tracker) -> None:
         if self.is_writer:
-            tracker.save_predictions()
+            with tracer.span("runner.save"):
+                tracker.save_predictions()
 
     def restart(self) -> None:
         """Forget every tracker's results and the collected data (the next
@@ -283,21 +313,21 @@ class TrackingRunner:
         it, else per tracker; each tracker skipped where a cache was
         loaded), then the draw / collect pass."""
         print(f"runner: Running {self.total_frames} frames")
-        if self.fused and self._try_fused_run():
-            if not self._fused_drew:
-                self.draw_and_collect_data()
-            return
-        for tracker in self.trackers.values():
-            if len(tracker) != 0:
-                print(f"{tracker}: {len(tracker)} predictions stored")
-                continue
-            t0 = timeit.default_timer()
-            tracker.predict_and_update(iter(self.frame_store), total_frames=self.total_frames)
-            t1 = timeit.default_timer()
-            self.stage_times[str(tracker)] = t1 - t0
-            print(f"{tracker}: {t1 - t0:.2f}s inference time.")
-            self._save(tracker)
-        self.draw_and_collect_data()
+        with tracer.run(self.total_frames) as self._record, tracer.span("runner.run"):
+            if self.fused and self._try_fused_run():
+                if not self._fused_drew:
+                    self.draw_and_collect_data()
+                return
+            for tracker in self.trackers.values():
+                if len(tracker) != 0:
+                    print(f"{tracker}: {len(tracker)} predictions stored")
+                    continue
+                with tracer.span(f"runner.{tracker}") as span:
+                    tracker.predict_and_update(iter(self.frame_store),
+                                               total_frames=self.total_frames)
+                print(f"{tracker}: {span.seconds:.2f}s inference time.")
+                self._save(tracker)
+            self.draw_and_collect_data()
 
     def _try_fused_run(self) -> bool:
         """Run players + pose + ball (+ court) in the single-upload
@@ -318,7 +348,19 @@ class TrackingRunner:
         if self.total_frames < by_name["ball_tracker"].tracknet_seq_len:
             return False
 
-        t0 = timeit.default_timer()
+        with tracer.span("runner.fused") as span:
+            self._fused_pass(court, needed)
+        print(f"runner: fused inference {span.seconds:.2f}s")
+        for name in needed:
+            self._save(by_name[name])
+        if court is not None:
+            self._save(court)
+        return True
+
+    def _fused_pass(self, court: Optional[Tracker], needed: tuple[str, ...]) -> None:
+        """The fused pipeline's pass, its results loaded into the trackers
+        (and drawn as they come, with a streaming drawer)."""
+        by_name = self.trackers
         # The cached pipeline is keyed to the court argument: a later run
         # whose court state differs (cache loaded vs empty) must rebuild.
         pipeline = self._fused_pipeline
@@ -364,13 +406,6 @@ class TrackingRunner:
         if drawer is not None:
             drawer.finish()
             self._fused_drew = True
-        self.stage_times["fused_inference"] = timeit.default_timer() - t0
-        print(f"runner: fused inference {self.stage_times['fused_inference']:.2f}s")
-        for name in needed:
-            self._save(by_name[name])
-        if court is not None:
-            self._save(court)
-        return True
 
     # --- draw / collect ----------------------------------------------------
 
@@ -434,18 +469,22 @@ class TrackingRunner:
         if self.data_analytics is not None:
             self.data_analytics.frames = self.data_analytics.frames[:-1]
 
-    def _finish_draw(self, writer, t0: float) -> None:
+    def _finish_draw(self, writer) -> None:
         writer.release()
         self._trim_trailing_frame()
-        self.stage_times["draw_and_collect"] = timeit.default_timer() - t0
-        print("runner: Done.")
 
     def collect_data_only(self) -> None:
         """Collect without rendering: no decode, no OpenCV, no writer. The
         stored predictions go through the same projection path as the draw
         loop, so data_analytics is the same."""
         print("runner: Collecting data (render=False; no video output)")
-        t0 = timeit.default_timer()
+        with tracer.span("runner.collect"):
+            self._collect_frames()
+        print("runner: Done.")
+
+    def _collect_frames(self) -> None:
+        """Every frame's stored predictions through the projections into
+        data_analytics."""
         for name, tracker in self.trackers.items():
             if len(tracker.results) < self.total_frames:
                 # The draw loop fails on the same condition with an
@@ -474,8 +513,6 @@ class TrackingRunner:
             if self.data_analytics is not None:
                 self.data_analytics.step(1)
         self._trim_trailing_frame()
-        self.stage_times["draw_and_collect"] = timeit.default_timer() - t0
-        print("runner: Done.")
 
     def draw_and_collect_data(self) -> None:
         """Render the annotated video with the minimap projections and
@@ -487,12 +524,13 @@ class TrackingRunner:
                 self.collect_data_only()
             return
         print(f"runner: Writing results into {self.inference_path}")
-        t0 = timeit.default_timer()
-        writer = self._open_writer()
-        try:
-            for frame_index, frame in enumerate(self.frame_store):
-                self._draw_one(writer, frame_index, frame)
-        except BaseException:
-            writer.release()  # finalise the container (and free the shared encoder)
-            raise
-        self._finish_draw(writer, t0)
+        with tracer.span("runner.collect"):
+            writer = self._open_writer()
+            try:
+                for frame_index, frame in enumerate(self.frame_store):
+                    self._draw_one(writer, frame_index, frame)
+            except BaseException:
+                writer.release()  # finalise the container (and free the shared encoder)
+                raise
+            self._finish_draw(writer)
+        print("runner: Done.")
