@@ -41,19 +41,20 @@ def window_in_dim(bg_mode: str, seq_len: int) -> int:
     return seq_len * _FRAME_CHANNELS.get(bg_mode, 3) + (3 if bg_mode == "concat" else 0)
 
 
-def median_model_resolution(median: np.ndarray, height: int, width: int,
-                            bg_mode: str, device: torch.device | str) -> np.ndarray:
-    """Median background at model resolution, uint8 (H, W, 3).
+def median_model_resolution(median: np.ndarray | torch.Tensor, height: int, width: int,
+                            bg_mode: str, device: torch.device | str) -> torch.Tensor:
+    """Median background at model resolution, a uint8 (H, W, 3) tensor on
+    `device`, made there from the median (a tensor on the device, as the
+    ball tracker keeps it, or a host array).
 
     'concat': PIL-parity bicubic resize of the uint8-cast median with
     Pillow's rounding (including the reference's float-median -> uint8
     pre-cast). Other modes get a zeros placeholder that is never read."""
     if bg_mode != "concat":
-        return np.zeros((height, width, 3), np.uint8)
-    plan = resize_plan(median.shape[:2], (height, width), "pil_bicubic")
-    med = torch.from_numpy(median.astype(np.uint8).astype(np.float32)).to(device)
-    out = plan.apply(med).cpu().numpy()
-    return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+        return torch.zeros((height, width, 3), dtype=torch.uint8, device=device)
+    plan = resize_plan(tuple(median.shape[:2]), (height, width), "pil_bicubic")
+    med = torch.as_tensor(median, device=device).to(torch.uint8).to(torch.float32)
+    return torch.clamp(torch.floor(plan.apply(med) + 0.5), 0, 255).to(torch.uint8)
 
 
 def make_frame_preprocess(src_hw: tuple[int, int], dst_hw: tuple[int, int], bg_mode: str):

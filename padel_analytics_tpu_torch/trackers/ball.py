@@ -37,7 +37,7 @@ from __future__ import annotations
 import hashlib
 import math
 from pathlib import Path
-from typing import Iterable, Optional, Type
+from typing import Iterable, Optional, Sequence, Type
 
 import numpy as np
 import torch
@@ -54,7 +54,7 @@ from ..models.layers import lecun_normal_
 from ..models.tracknet import InpaintNet, make_tracknet
 from ..ops.ensemble import get_ensemble_weight, overlap_ensemble_coefficients
 from ..ops.heatmap import decode_heatmaps
-from ..ops.median import median_background
+from ..ops.median import median_on_device
 from ..parallel.sharded_inference import sharded_window_inference
 from ._ballwindow import (
     assemble_windows,
@@ -174,6 +174,9 @@ class BallTracker(Tracker):
         # tracker on another clip rebuilds them (ensure_median_for_clip).
         self._median_user = median is not None
         self._median_fp: Optional[str] = None
+        # `median` on the device, beside the array it holds: the tensor the
+        # median was computed as, or one upload of a median set from outside.
+        self._median_dev: tuple[Optional[np.ndarray], Optional[torch.Tensor]] = (None, None)
         self.channel_quirk = channel_quirk
 
         self.tracknet_seq_len = self.TRAJECTORY_LENGTH
@@ -429,7 +432,7 @@ class BallTracker(Tracker):
         first = next(resized_iter, None)
         if first is None:
             return [], [], [], 0
-        median_dev = torch.from_numpy(self._median_resized).to(first.device)
+        median_dev = self._median_resized.to(first.device)
         pending = [first]
         xs: list[int] = []
         ys: list[int] = []
@@ -494,7 +497,7 @@ class BallTracker(Tracker):
             (seq_len - 1, self.HEIGHT, self.WIDTH, frame_channels(self.bg_mode)),
             dtype=torch.float32, device=dev,
         )
-        median_dev = torch.from_numpy(self._median_resized).to(dev)
+        median_dev = self._median_resized.to(dev)
 
         xs: list[int] = []
         ys: list[int] = []
@@ -544,21 +547,35 @@ class BallTracker(Tracker):
         itself: a background mode is active and no median was supplied."""
         return bool(self.bg_mode) and not self._median_user
 
-    def ensure_median_for_clip(self, head_frames: list[np.ndarray]) -> bool:
-        """(Re)compute the median from the clip's buffered head unless a
-        cached one already belongs to this clip (first-frame fingerprint).
-        Returns True iff the reference's median-buffer channel quirk applies
-        to the head frames this run."""
+    def ensure_median_for_clip(self, head_frames: Sequence[np.ndarray]) -> bool:
+        """(Re)compute the median from the clip's buffered head (a list of
+        frames, or their stack) unless a cached one already belongs to this
+        clip (first-frame fingerprint). The frames go to the device band by
+        band through pinned slots, with no host stack
+        (`ops.median.median_on_device`); the median stays there for the
+        device steps (`device_median`), and `self.median` is its one
+        download. Returns True iff the reference's median-buffer channel
+        quirk applies to the head frames this run."""
         if not self.owns_median():
             raise RuntimeError("the median was supplied by the caller")
         subtract_mode = self.bg_mode in ("subtract", "subtract_concat")
         fp = hashlib.sha1(head_frames[0].tobytes()).hexdigest()
         if self.median is None or fp != self._median_fp:
-            self.median = median_background(
-                np.stack(head_frames), exact=subtract_mode, device=self.device
-            )
+            dev = median_on_device(head_frames, exact=subtract_mode, device=self.device)
+            self.median = dev.cpu().numpy()
+            self._median_dev = (self.median, dev)
             self._median_fp = fp
         return self.channel_quirk
+
+    def device_median(self) -> torch.Tensor:
+        """`self.median` on the tracker's device: the tensor it was computed
+        as, or, for a median set from outside, one upload kept while
+        `self.median` is the same array."""
+        held, dev = self._median_dev
+        if held is not self.median:
+            dev = torch.from_numpy(np.ascontiguousarray(self.median)).to(self.device)
+            self._median_dev = (self.median, dev)
+        return dev
 
     def _resized_frame_stream(self, frame_generator):
         """Decode -> (median over the head of the clip) -> device resize to
@@ -605,7 +622,7 @@ class BallTracker(Tracker):
             # 'concat'; the quirk swap applies to the head frames either way.
             quirk = self.ensure_median_for_clip(buffered)
             if subtract_mode:
-                median_src_dev = torch.from_numpy(self.median.astype(np.float32)).to(self.device)
+                median_src_dev = self.device_median().float()
             self._set_median_resized()
             for i in range(0, len(buffered), chunk):
                 yield from flush(buffered[i: i + chunk], swapped=quirk)
@@ -615,7 +632,7 @@ class BallTracker(Tracker):
             if subtract_mode:
                 if self.median is None:
                     raise ValueError(f"bg_mode={self.bg_mode!r} needs a median background")
-                median_src_dev = torch.from_numpy(self.median.astype(np.float32)).to(self.device)
+                median_src_dev = self.device_median().float()
             self._set_median_resized()
             rest = frame_generator
         tail: list[np.ndarray] = []
@@ -627,11 +644,12 @@ class BallTracker(Tracker):
         yield from flush(tail, swapped=False)
 
     def _set_median_resized(self) -> None:
-        # Median at model resolution, or a zeros placeholder (other modes,
-        # or an empty clip with no median).
+        # Median at model resolution on the device, or a zeros placeholder
+        # (other modes, or an empty clip with no median).
         if self.median is None:
-            self._median_resized = np.zeros((self.HEIGHT, self.WIDTH, 3), np.uint8)
+            self._median_resized = torch.zeros((self.HEIGHT, self.WIDTH, 3), dtype=torch.uint8,
+                                               device=self.device)
             return
         self._median_resized = median_model_resolution(
-            self.median, self.HEIGHT, self.WIDTH, self.bg_mode, self.device
+            self.device_median(), self.HEIGHT, self.WIDTH, self.bg_mode, self.device
         )

@@ -698,17 +698,18 @@ class FusedPipeline:
         return plans
 
     def _ball_device_setup(self, n: int, median_resized, median_src, quirk_flags) -> _BallState:
-        """Device-resident ball-branch state for an n-frame clip. The tables
-        are padded so chunk k's rows are table[lo : lo + b] (out-of-range
-        frames are zero rows)."""
+        """Device-resident ball-branch state for an n-frame clip, around the
+        median tensors `_gather_setup` left on the device. The tables are
+        padded so chunk k's rows are table[lo : lo + b] (out-of-range frames
+        are zero rows)."""
         b = self.chunk
         ball = self.ball
         seq_len = ball.tracknet_seq_len
         coef, swap = self._ball_tables(n, quirk_flags, (-(-(n + seq_len - 1) // b)) * b + b)
         dev = self.device
         return _BallState(
-            median=torch.from_numpy(median_resized).to(dev),
-            median_src=None if median_src is None else torch.from_numpy(median_src).to(dev),
+            median=median_resized,
+            median_src=median_src,
             coef=torch.from_numpy(coef).to(dev),
             swap=torch.from_numpy(swap).to(dev),
             frame_carry=torch.zeros((seq_len - 1, ball.HEIGHT, ball.WIDTH,
@@ -990,9 +991,9 @@ class FusedPipeline:
                 num_rounds = -(-(n + self._ball_off) // rows)
                 coef, swap = self._ball_tables(n, quirk_flags, num_rounds * rows + self.chunk)
                 st = entry.state
-                st.median.copy_(torch.from_numpy(median_resized))
+                st.median.copy_(median_resized)
                 if st.median_src is not None:
-                    st.median_src.copy_(torch.from_numpy(median_src))
+                    st.median_src.copy_(median_src)
                 st.frame_carry.zero_()
                 st.heat_carry.zero_()
                 tables = (torch.from_numpy(coef).to(self.device),
@@ -1259,13 +1260,11 @@ class FusedPipeline:
         lanes = self.lanes
         lanes.after_current()
         with lanes.on(lanes.ball):  # allocated and read on the ball lane
-            median_src_dev = None if median_src is None else torch.from_numpy(median_src).to(
-                self.device)
             swap = torch.from_numpy(flags).to(self.device)
 
         def step(frames, lo: int):
             chunk_flags = swap[lo: lo + b] if np.any(flags[lo: lo + b]) else None
-            out = pre(frames, median_src=median_src_dev, swap=chunk_flags)
+            out = pre(frames, median_src=median_src, swap=chunk_flags)
             return out.to(torch.uint8), None  # exact integers in [0, 255]
 
         return step
@@ -1306,7 +1305,8 @@ class FusedPipeline:
         window. Frames stay RGB for det/pose; the reference's channel quirk
         (the ball path sees the first median_max_sample_num frames
         channel-swapped) becomes per-frame flags that the ball branch reads
-        on the device."""
+        on the device. The median and its model-resolution copy are handed
+        on as tensors on the device, where the median was computed."""
         ball = self.ball
         subtract_mode = ball.bg_mode in ("subtract", "subtract_concat")
         buffered: list[np.ndarray] = []
@@ -1338,20 +1338,25 @@ class FusedPipeline:
         self._check_ingest(src_hw)
         quirk_flags = np.zeros(n, np.float32)
         quirk_flags[: min(quirk_upto, n)] = 1.0
+        dev = self.device
         if ball.median is None:
-            median_resized = np.zeros((ball.HEIGHT, ball.WIDTH, 3), np.uint8)
+            median_resized = torch.zeros((ball.HEIGHT, ball.WIDTH, 3), dtype=torch.uint8,
+                                         device=dev)
         else:
             with tracer.span("ball.median"):
-                median_resized = median_model_resolution(ball.median, ball.HEIGHT, ball.WIDTH,
-                                                         ball.bg_mode, self.device)
+                median_resized = median_model_resolution(ball.device_median(), ball.HEIGHT,
+                                                         ball.WIDTH, ball.bg_mode, dev)
         # Float median for the subtract modes' difference images on the
-        # device, at the resolution they run at: the source, or the wire in
-        # the 'derived' ingest (INTER_AREA, as the frames).
+        # device, at the resolution they run at: the source (the median as
+        # it was computed there), or the wire in the 'derived' ingest
+        # (INTER_AREA on the host, as the frames).
         median_src = None
         if subtract_mode:
-            median_src = ball.median.astype(np.float32)
             wire_hw = self._wire(src_hw)[0]
-            if wire_hw != src_hw:
-                median_src = resize_area(median_src, wire_hw)
+            if wire_hw == src_hw:
+                median_src = ball.device_median().to(dev, torch.float32)
+            else:
+                median_src = torch.from_numpy(
+                    resize_area(ball.median.astype(np.float32), wire_hw)).to(dev)
         return median_resized, median_src, fw, quirk_flags, n, src_hw
 

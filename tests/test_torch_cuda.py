@@ -1,6 +1,7 @@
 """Kernels K1 and K2 on the card against their plain PyTorch versions,
 YOLOv8m, ResNet-50, the subpixel TrackNet, the banded resize and the NMS on
-the card against their CPU results, and the fused pipeline on the card
+the card against their CPU results, the ball median on the card against
+np.median (through pinned staging alone), and the fused pipeline on the card
 against the per-tracker paths and its CPU run (decisive fakes), the fast
 configuration ('derived' ingest, nonoverlap ball stride), the model court
 and InpaintNet included; the multi-device path (an NCCL group of one rank:
@@ -290,6 +291,32 @@ def test_build_reuses_library(dev):
         torch.zeros(8, device=dev),
     )
     assert _build.library("conv3x3_bn_act") is _build.library("conv3x3_bn_act")
+
+
+def test_median_on_card_is_numpys_through_pinned_bands(dev):
+    """A 300-frame 1080p head, as a list of frames: the median the ball
+    tracker keeps on the card is np.median's bit for bit, truncated
+    ('concat') and exact ('subtract'), and the frames reach the card through
+    pinned slots alone: the profiler sees no pageable host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(40)
+    head = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(300)]
+    want = np.median(np.stack(head), axis=0)
+    cuda = torch.autograd.DeviceType.CUDA
+    for mode, dtype in (("concat", np.uint8), ("subtract", np.float32)):
+        ball = BallTracker(None, config=BallTrackerConfig(bg_mode=mode), device=dev)
+        ball.ensure_median_for_clip(head)  # warm: the slots' first pinned allocation
+        ball.median = None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ball.ensure_median_for_clip(head)
+            torch.cuda.synchronize()
+        copies = [e.name for e in prof.events() if e.device_type == cuda and "Memcpy" in e.name]
+        assert any(name.startswith("Memcpy HtoD (Pinned") for name in copies), copies
+        assert not [name for name in copies if name.startswith("Memcpy HtoD (Pageable")]
+        assert ball.device_median().device.type == "cuda"
+        np.testing.assert_array_equal(ball.device_median().cpu().numpy(), want.astype(dtype))
+        np.testing.assert_array_equal(ball.median, want.astype(dtype))
 
 
 @pytest.mark.parametrize("chunk", [4, 8])

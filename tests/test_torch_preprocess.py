@@ -1,5 +1,6 @@
 """Port ball-window preprocessing against the JAX package on the same numpy
-inputs: PIL-bicubic resize, median background, ensemble tables, and the
+inputs: PIL-bicubic resize, median background (and the ball tracker's
+median kept on the device), ensemble tables, and the
 per-frame preprocess + window assembly for every bg_mode. Compared values
 are uint8 intensities or exact fp32 tables, and must be EQUAL, except the
 raw resize of uniform-noise images: there the two fp32 matmuls sum in
@@ -19,7 +20,9 @@ from padel_analytics_tpu.ops import ensemble as jens
 from padel_analytics_tpu.ops import median as jmed
 from padel_analytics_tpu.ops import resize as jres
 from padel_analytics_tpu.trackers import _ballwindow as jbw
+from padel_analytics_tpu_torch.config import BallTrackerConfig
 from padel_analytics_tpu_torch.ops import ensemble, median, resize
+from padel_analytics_tpu_torch.trackers import BallTracker
 from padel_analytics_tpu_torch.trackers import _ballwindow as bw
 
 
@@ -40,16 +43,70 @@ def test_resize_plan_matches_jax(rng, src, dst):
     assert int((off > 0).sum()) <= off.size // 1000
 
 
-@pytest.mark.parametrize("n", [9, 10])
-@pytest.mark.parametrize("exact", [False, True])
-def test_median_background_matches_jax_and_numpy(rng, n, exact):
-    frames = rng.integers(0, 256, (n, 17, 23, 3), dtype=np.uint8)
-    got = median.median_background(frames, row_chunk=5, exact=exact, device="cpu")
-    want = jmed.median_background(frames, row_chunk=5, exact=exact)
+# (n, exact, form, band rows): odd and even N, N below and not a multiple of
+# the fill threads (ops.median.FILL_THREADS = 4), bands that do not divide the
+# 17 rows, one band, one row a band and the default height, and the frames as
+# a stack, a list of arrays, or views with negative strides.
+MEDIAN_CASES = [pytest.param(n, exact, "stack", 5, id=f"{exact}-{n}")
+                for n in (9, 10) for exact in (False, True)] + [
+    pytest.param(n, exact, form, rows, id=f"{exact}-{n}-{form}-{rows}")
+    for n, form, rows in ((10, "list", 5), (9, "views", 5), (10, "views", 4), (13, "list", 1),
+                          (3, "views", 17), (2, "list", 6), (1, "stack", 5), (6, "views", None))
+    for exact in (False, True)]
+
+
+@pytest.mark.parametrize("n,exact,form,rows", MEDIAN_CASES)
+def test_median_background_matches_jax_and_numpy(rng, n, exact, form, rows):
+    stack = rng.integers(0, 256, (n, 17, 23, 3), dtype=np.uint8)
+    frames = {"stack": stack, "list": list(stack),
+              "views": [f[::-1, :, ::-1] for f in stack]}[form]
+    dense = np.stack(frames)
+    if rows is None:
+        got = median.median_on_device(frames, exact, device="cpu").numpy()
+    else:
+        got = median.median_background(frames, row_chunk=rows, exact=exact, device="cpu")
+    want = jmed.median_background(dense, row_chunk=rows or 17, exact=exact)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    ref = np.median(frames, axis=0)
+    ref = np.median(dense, axis=0)
     np.testing.assert_array_equal(got, ref.astype(np.float32) if exact else ref.astype(np.uint8))
+
+
+@pytest.mark.parametrize("bg_mode", ["concat", "subtract"])
+def test_ensure_median_for_clip_takes_a_list_as_its_stack(rng, bg_mode):
+    """A clip's head as a list of frames gives the median its stack gives,
+    the median kept on the device is the array's, and the model-resolution
+    copy made from it equals the one made from the host array."""
+    stack = rng.integers(0, 256, (10, 21, 34, 3), dtype=np.uint8)
+    medians = []
+    for head in (list(stack), stack):
+        ball = BallTracker(None, compute_dtype=torch.float32, device="cpu",
+                           config=BallTrackerConfig(height=16, width=32, bg_mode=bg_mode))
+        ball.ensure_median_for_clip(head)
+        np.testing.assert_array_equal(ball.device_median().numpy(), ball.median)
+        medians.append(ball.median)
+    assert medians[0].dtype == (np.float32 if bg_mode == "subtract" else np.uint8)
+    np.testing.assert_array_equal(*medians)
+    np.testing.assert_array_equal(medians[0], np.median(stack, axis=0).astype(medians[0].dtype))
+    for mode in ("concat", "subtract"):
+        from_host = bw.median_model_resolution(ball.median, 16, 32, mode, "cpu")
+        on_dev = bw.median_model_resolution(ball.device_median(), 16, 32, mode, "cpu")
+        assert on_dev.dtype == torch.uint8 and on_dev.shape == (16, 32, 3)
+        assert torch.equal(on_dev, from_host)
+
+
+def test_device_median_follows_a_median_set_from_outside(rng):
+    """A median set from outside is uploaded once, and again only when
+    another array takes its place."""
+    ball = BallTracker(None, compute_dtype=torch.float32, device="cpu",
+                       config=BallTrackerConfig(height=16, width=32))
+    ball.ensure_median_for_clip(list(rng.integers(0, 256, (4, 8, 12, 3), dtype=np.uint8)))
+    computed = ball.device_median()
+    assert ball.device_median() is computed
+    ball.median = rng.integers(0, 256, (8, 12, 3), dtype=np.uint8)
+    outside = ball.device_median()
+    assert outside is not computed and ball.device_median() is outside
+    np.testing.assert_array_equal(outside.numpy(), ball.median)
 
 
 @pytest.mark.parametrize("num_frames", [8, 9, 12, 30])
@@ -81,7 +138,7 @@ def test_frame_preprocess_and_windows_match_jax(rng, bg_mode):
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, want)  # exact uint8 values, every pixel
 
-    med_res = bw.median_model_resolution(median_src, *dst, bg_mode, "cpu")
+    med_res = bw.median_model_resolution(median_src, *dst, bg_mode, "cpu").numpy()
     np.testing.assert_array_equal(med_res, jbw.median_model_resolution(median_src, *dst, bg_mode))
     x = bw.assemble_windows(torch.from_numpy(got), torch.from_numpy(med_res), bg_mode,
                             seq_len, batch).numpy()
